@@ -1,0 +1,367 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints a line; any failure exits nonzero before the result):
+  1. device: require CUDA; print the card's name and power limit;
+  2. build the CUDA kernels K1-K4 from mgard_tpu_torch/csrc with nvcc;
+  3. each kernel against its plain PyTorch version on the card, at the
+     512^3 geometry of the main path (and a few small geometries), with
+     times from CUDA events;
+  4. the main path: compress + decompress a 512^3 float32 field at
+     tol=1e-3 (s=inf, ABS, default Config) through the public API, with the
+     launch counters reset just before and read just after;
+  5. a 256^3 stream written on the card, decoded on the CPU (plain path)
+     and on the card, for the flag-1 path and the flag-0 fallback.
+The second-to-last line is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+TOL = 1e-3
+DEVICE = "cuda:0"
+N_MAIN = 512
+N_CROSS = 256
+REPO_KERNELS = {
+    "hybrid_fwd_v2": ("mgard_tpu_torch/csrc/hybrid_v2.cu",
+                      "mgard_tpu/ops/hybrid.py:576"),
+    "bfp_encode": ("mgard_tpu_torch/csrc/bfp.cu",
+                   "mgard_tpu/lossless/bfp.py:278"),
+    "bfp_decode": ("mgard_tpu_torch/csrc/bfp.cu",
+                   "mgard_tpu/lossless/bfp.py:329"),
+    "hybrid_inv_v2": ("mgard_tpu_torch/csrc/hybrid_v2.cu",
+                      "mgard_tpu/ops/hybrid.py:682"),
+}
+
+
+def phase(msg):
+    print(msg, flush=True)
+
+
+def bench_field(n, device):
+    """The smooth multi-mode field of bench.py (same default_rng(42) draws),
+    built with torch on the device."""
+    x = torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=device)
+    X, Y, Z = x[:, None, None], x[None, :, None], x[None, None, :]
+    rng = np.random.default_rng(42)
+    v = torch.zeros((n, n, n), dtype=torch.float32, device=device)
+    for _ in range(6):
+        kx, ky, kz = (int(k) for k in rng.integers(1, 9, 3))
+        amp = float(rng.uniform(0.3, 1.0))
+        ph = float(rng.uniform(0, 2 * np.pi))
+        v += amp * torch.sin(2 * np.pi * (kx * X + ky * Y + kz * Z) + ph)
+    return v
+
+
+def time_ms(fn, reps=5):
+    """Mean device time of fn over reps launches (CUDA events, one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def max_abs(x, y):
+    if x.dtype in (torch.int16, torch.int32):
+        x, y = x.to(torch.int64), y.to(torch.int64)
+    return float((x - y).abs().max()) if x.numel() else 0.0
+
+
+class Recorder:
+    """Swap a module function for a recording wrapper (captures the exact
+    inputs the pipeline hands a kernel wrapper)."""
+
+    def __init__(self, mod, name, replacement=None):
+        self.mod, self.name = mod, name
+        self.real = getattr(mod, name)
+        self.replacement = replacement
+        self.calls = []
+
+    def __enter__(self):
+        target = self.replacement or self.real
+
+        def rec(*args, **kw):
+            self.calls.append((args, kw))
+            return target(*args, **kw)
+
+        setattr(self.mod, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def main():
+    # -- 1. device -------------------------------------------------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
+                         " is False)")
+    dev = torch.device(DEVICE)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    phase(f"phase 1 device: {torch.cuda.get_device_name(0)}, "
+          f"torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"count {torch.cuda.device_count()}")
+
+    import mgard_tpu_torch as M
+    from mgard_tpu_torch import highlevel as HL, kernels
+    from mgard_tpu_torch.hierarchy import get_hierarchy
+    from mgard_tpu_torch.lossless import bfp as B
+    from mgard_tpu_torch.ops import hybrid as Hy
+    from mgard_tpu_torch.ops.refactor import decompose
+    from mgard_tpu_torch.utils.bytesink import join
+
+    # -- 2. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    path = kernels.build()
+    kernels.lib()
+    phase(f"phase 2 build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in kernels.BUILD_LOG.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            phase("  ptxas " + line.strip())
+
+    # -- 3. kernels against their plain versions -------------------------
+    rows = {}
+
+    def report(name, err, ms, plain_ms, bound=0.0):
+        if not err <= bound:
+            raise AssertionError(f"{name}: max_abs_err {err} > {bound}")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        phase(f"phase 3 {name}: max_abs_err={err} (bound {bound}) "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    def check_hybrid(v, C, nl, q, timed):
+        inv_q = HL._inv_q(q)
+        k = Hy.local_transform_fused_v2(v, inv_q, nl, C)
+        p = Hy.local_transform_v2(v, inv_q, nl, C)
+        err_f = max(max_abs(a, b) for a, b in zip(k, p))
+        ok = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and \
+            torch.equal(k[2], p[2])
+        if not ok:
+            raise AssertionError(f"K1 differs from plain: {err_f}")
+        oi = Hy.local_inverse_fused_v2(k[0], k[2], HL._f32(q), nl)
+        op = Hy.local_inverse_v2(k[0], k[2], HL._f32(q), nl)
+        err_i = max_abs(oi, op)
+        if not timed:
+            if err_i != 0.0:
+                raise AssertionError(f"K4 differs from plain: {err_i}")
+            phase(f"phase 3 small {tuple(v.shape)} C={C} nl={nl}: K1 and K4"
+                  " equal to plain")
+            return k
+        report("hybrid_fwd_v2", err_f,
+               time_ms(lambda: Hy.local_transform_fused_v2(v, inv_q, nl, C)),
+               time_ms(lambda: Hy.local_transform_v2(v, inv_q, nl, C), 2))
+        report("hybrid_inv_v2", err_i,
+               time_ms(lambda: Hy.local_inverse_fused_v2(
+                   k[0], k[2], HL._f32(q), nl)),
+               time_ms(lambda: Hy.local_inverse_v2(
+                   k[0], k[2], HL._f32(q), nl), 2))
+        return k
+
+    gen = np.random.default_rng(7)
+    for shp, C, nl in (((16, 16, 128), 4, 3), ((8, 128, 768), 8, 3),
+                       ((16, 16, 256), 8, 2), ((16, 16, 128), 4, 1)):
+        vs = torch.from_numpy(gen.standard_normal(shp).astype(np.float32))
+        check_hybrid(vs.to(dev), C, nl, 1e-3, timed=False)
+
+    v = bench_field(N_MAIN, dev)
+    padded = (N_MAIN,) * 3
+    cfg = M.Config()
+    rem_hier = get_hierarchy(Hy.remainder_shape(padded, 3), np.float32, None,
+                             cfg)
+    q = HL._hybrid_quantizer(TOL, Hy.hybrid_l_total(padded, 3, rem_hier))
+    C = HL._pick_v2_chunk(padded, cfg)
+    pay, cw, rem = check_hybrid(v, C, 3, q, timed=True)
+
+    # K2/K3, cf stream (rank in-kernel, u16 rows) at the main path's K
+    E, sb = B.E_DEFAULT, HL._v2_sb(cfg, N_MAIN ** 3, C)
+    hist = np.bincount(np.clip(cw.cpu().numpy(), 0, 32), minlength=33)
+    K = B.choose_K(hist, E, C)
+    crl = (cw - K).clamp(0, E).to(torch.int32)
+    prow = pay.reshape(-1, C * 32)
+    with Recorder(B, "encode_bands") as enc:
+        out_k = B.encode_core_zz(prow, crl, K, E, sb, C)
+    with Recorder(B, "encode_bands", B.encode_bands_plain):
+        out_p = B.encode_core_zz(prow, crl, K, E, sb, C)
+    n_cf = N_MAIN ** 3
+    blob_k = join(B.serialize_prepared_parts(n_cf, K, E, sb, C, crl, *out_k))
+    blob_p = join(B.serialize_prepared_parts(n_cf, K, E, sb, C, crl, *out_p))
+    if blob_k != blob_p:
+        raise AssertionError("K2 (cf stream) bytes differ from plain")
+    enc_args, enc_kw = enc.calls[0]
+    cf_enc = (time_ms(lambda: B.encode_bands(*enc_args, **enc_kw)),
+              time_ms(lambda: B.encode_bands_plain(*enc_args, **enc_kw), 2))
+    with Recorder(B, "decode_bands") as dec:
+        back_k = B.decode_core_zz(out_k[0], crl, out_k[1], K, E, sb,
+                                  n_cf // 32, C)
+    with Recorder(B, "decode_bands", B.decode_bands_plain):
+        back_p = B.decode_core_zz(out_k[0], crl, out_k[1], K, E, sb,
+                                  n_cf // 32, C)
+    if not (torch.equal(back_k, back_p) and torch.equal(back_k, prow)):
+        raise AssertionError("K3 (cf stream) rows differ")
+    dec_args, dec_kw = dec.calls[0]
+    cf_dec = (time_ms(lambda: B.decode_bands(*dec_args, **dec_kw)),
+              time_ms(lambda: B.decode_bands_plain(*dec_args, **dec_kw), 2))
+    phase(f"phase 3 K2/K3 cf stream: K={K} E={E} sb={sb} C={C}: bytes and "
+          f"rows equal; encode {cf_enc[0]:.4f} ms (plain {cf_enc[1]:.4f}), "
+          f"decode {cf_dec[0]:.4f} ms (plain {cf_dec[1]:.4f})")
+
+    # K2/K3, remainder stream (generic encode_core: natural rows + rank)
+    rem_sym = Hy.quantize(decompose(rem, rem_hier), HL._inv_q(q)).reshape(-1)
+    B._K_CACHE.clear()
+    with Recorder(B, "encode_bands") as enc:
+        st_k = B.encode_device(rem_sym, cfg)
+    with Recorder(B, "encode_bands", B.encode_bands_plain):
+        st_p = B.encode_device(rem_sym, cfg)
+    rblob_k = join(B.serialize_device_parts(st_k))
+    if rblob_k != join(B.serialize_device_parts(st_p)):
+        raise AssertionError("K2 (remainder stream) bytes differ from plain")
+    enc_args, enc_kw = enc.calls[0]
+    rem_enc = (time_ms(lambda: B.encode_bands(*enc_args, **enc_kw)),
+               time_ms(lambda: B.encode_bands_plain(*enc_args, **enc_kw), 2))
+    with Recorder(B, "decode_bands") as dec:
+        sym_k, _ = B.decode(rblob_k, 0, dev)
+    with Recorder(B, "decode_bands", B.decode_bands_plain):
+        sym_p, _ = B.decode(rblob_k, 0, dev)
+    if not (torch.equal(sym_k, sym_p) and torch.equal(sym_k, rem_sym)):
+        raise AssertionError("K3 (remainder stream) symbols differ")
+    dec_args, dec_kw = dec.calls[0]
+    rem_dec = (time_ms(lambda: B.decode_bands(*dec_args, **dec_kw)),
+               time_ms(lambda: B.decode_bands_plain(*dec_args, **dec_kw), 2))
+    _s = st_k
+    phase(f"phase 3 K2/K3 remainder stream: n={rem_sym.numel()} K={_s[2]} "
+          f"E={_s[3]} sb={_s[4]} C={_s[8]}: bytes and symbols equal; "
+          f"encode {rem_enc[0]:.4f} ms (plain {rem_enc[1]:.4f}), decode "
+          f"{rem_dec[0]:.4f} ms (plain {rem_dec[1]:.4f})")
+
+    # wide rows (K+E > 16) and the small superblock (sb=256, C=2)
+    wide = torch.from_numpy(
+        (gen.standard_normal(256 * 32 * 4) * 5e4).astype(np.int32)).to(dev)
+    wcfg = M.Config()
+    wcfg.bfp_base_planes, wcfg.bfp_sb_blocks = 12, 256
+    with Recorder(B, "encode_bands", B.encode_bands_plain):
+        wb_p = join(B.serialize_device_parts(B.encode_device(wide, wcfg)))
+    wb_k = join(B.serialize_device_parts(B.encode_device(wide, wcfg)))
+    if wb_k != wb_p or not torch.equal(B.decode(wb_k, 0, dev)[0], wide):
+        raise AssertionError("K2/K3 wide rows at sb=256 differ")
+    phase("phase 3 small K2/K3 wide rows (K=12, E=8) at sb=256, C=2: bytes "
+          "and symbols equal")
+    rows["bfp_encode"] = dict(max_abs_err=0.0, ms=cf_enc[0] + rem_enc[0],
+                              plain_ms=cf_enc[1] + rem_enc[1])
+    rows["bfp_decode"] = dict(max_abs_err=0.0, ms=cf_dec[0] + rem_dec[0],
+                              plain_ms=cf_dec[1] + rem_dec[1])
+    del pay, cw, rem, out_k, out_p, back_k, back_p, prow
+    torch.cuda.empty_cache()
+
+    # -- 4. the main path ------------------------------------------------
+    nbytes = v.numel() * 4
+    B._K_CACHE.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    times = []
+    for _rep in range(3):
+        t0 = time.perf_counter()
+        blob, st = M.compress(v, TOL, s=math.inf, mode=M.error_bound_type.ABS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, st2 = M.decompress(blob, device=dev)
+        torch.cuda.synchronize()
+        times.append((t1 - t0, time.perf_counter() - t1))
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if st != M.compress_status_type.Success or \
+            st2 != M.compress_status_type.Success:
+        raise AssertionError(f"status {st} / {st2}")
+    from mgard_tpu_torch.formats.metadata import Metadata
+
+    flag = blob[Metadata.deserialize(blob)[1] + 8 + len(HL._EMPTY_OUTLIERS)]
+    if flag != 1:
+        raise AssertionError(f"main path wrote flag {flag}, expected 1")
+    missing = [k for k in REPO_KERNELS if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing} ({launches})")
+    err = float((out - v).abs().max())
+    if not (torch.isfinite(out).all() and tuple(out.shape) == tuple(v.shape)
+            and err <= TOL):
+        raise AssertionError(f"main path: L-inf {err} > {TOL} or bad output")
+    tc = min(t[0] for t in times)
+    td = min(t[1] for t in times)
+    phase(f"phase 4 main path {N_MAIN}^3 f32 tol={TOL}: flag 1, ratio "
+          f"{nbytes / len(blob):.4f}, L-inf {err:.3e}; compress "
+          f"{tc * 1e3:.1f} ms ({nbytes / tc / 1e9:.3f} GB/s), decompress "
+          f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [best of 3; "
+          f"first {times[0][0] * 1e3:.1f} / {times[0][1] * 1e3:.1f} ms]; "
+          f"peak device memory {peak / 2**30:.3f} GiB; launches {launches}")
+    del out, v
+    torch.cuda.empty_cache()
+
+    # -- 5. a card-written stream decoded on the CPU ---------------------
+    v2 = bench_field(N_CROSS, dev)
+    blob2, st = M.compress(v2, TOL)
+    out_gpu, st_g = M.decompress(blob2, device=dev)
+    out_cpu, st_c = M.decompress(blob2, device="cpu")
+    if st or st_g or st_c:
+        raise AssertionError(f"cross-device status {st}/{st_g}/{st_c}")
+    ref = v2.cpu()
+    e_cpu = float((out_cpu - ref).abs().max())
+    e_gpu = float((out_gpu.cpu() - ref).abs().max())
+    d = float((out_cpu - out_gpu.cpu()).abs().max())
+    # the two decodes differ only by the remainder transform's matmul
+    # summation order on each device
+    if not (e_cpu <= TOL and e_gpu <= TOL and d <= 1e-5):
+        raise AssertionError(f"cross-device: cpu {e_cpu}, gpu {e_gpu}, "
+                             f"diff {d}")
+    phase(f"phase 5 {N_CROSS}^3 card-written stream: CPU decode L-inf "
+          f"{e_cpu:.3e}, card decode {e_gpu:.3e}, CPU vs card {d:.3e} "
+          f"(bound 1e-5)")
+    # the flag-0 fallback on the card: a pinned K with K+E > 16 leaves the
+    # u16 budget, so the stream is one generic BFP section of u32 rows
+    cfg0 = M.Config()
+    cfg0.bfp_base_planes = 9
+    blob0, st = M.compress(v2, TOL, config=cfg0)
+    if st or blob0[Metadata.deserialize(blob0)[1] + 8
+                   + len(HL._EMPTY_OUTLIERS)] != 0:
+        raise AssertionError("flag-0 fallback not taken")
+    out0 = M.decompress(blob0, device=dev)[0]
+    out0c = M.decompress(blob0, device="cpu")[0]
+    e0 = float((out0.cpu() - ref).abs().max())
+    d0 = float((out0c - out0.cpu()).abs().max())
+    if not (e0 <= TOL and d0 <= 1e-5):
+        raise AssertionError(f"flag-0 on the card: L-inf {e0}, CPU vs card "
+                             f"{d0}")
+    phase(f"phase 5 {N_CROSS}^3 flag-0 fallback (K=9, E=8): card decode "
+          f"L-inf {e0:.3e}, CPU vs card {d0:.3e}")
+
+    print(json.dumps({"kernels": [
+        dict(name=k, route="cuda", source=src, replaces=rep,
+             launches=launches[k], **rows[k])
+        for k, (src, rep) in REPO_KERNELS.items()]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

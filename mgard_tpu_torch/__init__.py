@@ -1,0 +1,42 @@
+"""mgard_tpu_torch: the PyTorch/CUDA port of mgard-tpu (error-bounded lossy
+compression of scientific grids), written for one NVIDIA H100.
+
+It sits beside the JAX package ``mgard_tpu``, which stays the reference, and
+writes and reads the same streams. It imports neither JAX nor ``mgard_tpu``.
+This slice covers ``compress``/``decompress`` of float32 fields at s=inf
+with the Hybrid decomposition and the BFP lossless stage; the hand-written
+CUDA kernels live in ``csrc/`` and are built at first use (``kernels.py``).
+"""
+
+import torch as _torch
+
+# Float32 matmuls at full precision (the remainder transform is a chain of
+# float32 tensordots): TF32 keeps ~3 decimal digits, which would cost a
+# large share of a 1e-3 error budget. Set here, for the whole process.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from .config import Config  # noqa: E402
+from .dtypes import (  # noqa: E402
+    compress_status_type,
+    data_type,
+    decomposition_type,
+    domain_decomposition_type,
+    error_bound_type,
+    lossless_type,
+)
+from .highlevel import compress, decompress  # noqa: E402
+
+__version__ = "0.1.0"
+__all__ = [
+    "Config",
+    "compress",
+    "decompress",
+    "compress_status_type",
+    "data_type",
+    "decomposition_type",
+    "domain_decomposition_type",
+    "error_bound_type",
+    "lossless_type",
+]

@@ -1,0 +1,248 @@
+// K1 hybrid_fwd_v2 and K4 hybrid_inv_v2: the hybrid flag-1 ("v2") front end.
+//
+// Replaces the TPU kernels mgard_tpu/ops/hybrid.py::local_transform_fused_v2
+// (body _fwd_kernel_v2_body) and ::local_inverse_fused_v2 (body
+// _inv_kernel_v2_body). Plain versions: local_transform_v2 and
+// local_inverse_v2 in mgard_tpu_torch/ops/hybrid.py, which the kernels match
+// bit for bit (every float operation below is one rounded IEEE f32 operation
+// in the plain version's order; the library is built with -fmad=false).
+//
+// What bounds them on the H100: both are memory-bound byte movers. K1 reads
+// 4 bytes and writes 2 (+ 1/16 of a float for the remainder) per element;
+// K4 the reverse. The 3-level stencil is ~20 flops per element, far below
+// the card's ratio of flops to bytes.
+//
+// Design: one thread block owns an 8x8 (x, y) column of 8-blocks over the
+// whole z axis and walks it in tiles of 8 whole 8^3 blocks (8 x 8 x 64), so
+// the stencil never needs a halo and the per-chunk widths of its 64 (x, y)
+// rows stay in shared memory until one final store (no global atomics).
+// The TPU kernel's 0/1 selection matmul for the remainder and its bf16 byte
+// matmuls for the z-class permutation become index arithmetic here. Global
+// loads and stores run along z; the u16 payload is stored in grouped order
+// in runs of 8 (one run per z class and tile).
+#include "common.cuh"
+
+namespace {
+
+constexpr int ZT = 64;              // z extent of a tile: 8 whole 8-blocks
+constexpr int TILE = 8 * 8 * ZT;    // elements per tile
+constexpr int NT = 256;             // threads per block
+constexpr int MAX_H = 32;           // chunk rows per (x, y) row (Z <= 1024)
+
+// In-block position chains 8 -> 5 -> 3 -> 2 as bit masks over {0..7}:
+// {0..7}, {0,2,4,6,7}, {0,4,7}, {0,7}.
+__device__ __forceinline__ unsigned chain_mask(int l) {
+  return l == 0 ? 0xFFu : l == 1 ? 0xD5u : l == 2 ? 0x91u : 0x81u;
+}
+
+__device__ __forceinline__ bool in_chain(int l, int p) {
+  return (chain_mask(l) >> p) & 1u;
+}
+
+// Level-lvl coefficient positions: fine on the level's chain, not coarse.
+__device__ __forceinline__ bool is_fine(int lvl, int p) {
+  return ((chain_mask(lvl) & ~chain_mask(lvl + 1)) >> p) & 1u;
+}
+
+// The lerp rule of a level-lvl coefficient position p: coarse neighbours
+// (lp, rp) and float32 weights rounded from double exactly as the plain
+// version rounds them (t = (p - lp) / (rp - lp)).
+__device__ __forceinline__ void lerp_rule(int lvl, int p, int& lp, int& rp,
+                                          float& wl, float& wr) {
+  if (lvl == 0) {  // p in {1, 3, 5}
+    lp = p - 1; rp = p + 1; wl = 0.5f; wr = 0.5f;
+  } else if (lvl == 1) {
+    if (p == 2) { lp = 0; rp = 4; wl = 0.5f; wr = 0.5f; }
+    else { lp = 4; rp = 7; wl = (float)(1.0 - 2.0 / 3.0); wr = (float)(2.0 / 3.0); }
+  } else {  // p == 4
+    lp = 0; rp = 7; wl = (float)(1.0 - 4.0 / 7.0); wr = (float)(4.0 / 7.0);
+  }
+}
+
+// Level-lvl 3D coefficient: in the level grid on every axis, fine on one.
+__device__ __forceinline__ bool coeff3(int lvl, int px, int py, int pz) {
+  return in_chain(lvl, px) && in_chain(lvl, py) && in_chain(lvl, pz) &&
+         (is_fine(lvl, px) || is_fine(lvl, py) || is_fine(lvl, pz));
+}
+
+// Index of corner position p among the remainder columns of chain nl.
+__device__ __forceinline__ int rem_col(int nl, int p) {
+  return __popc(chain_mask(nl) & ((1u << p) - 1u));
+}
+
+// One level-axis interpolation pass over the tile, in place: it writes only
+// the level's coefficient positions along `axis` and reads only coarse
+// ones, so no element is read after it is written within the pass.
+__device__ void interp_pass(float* w, int axis, int lvl) {
+  const int stride = axis == 0 ? 8 * ZT : axis == 1 ? ZT : 1;
+  for (int e = threadIdx.x; e < TILE; e += NT) {
+    const int p = axis == 0 ? e / (8 * ZT) : axis == 1 ? (e / ZT) & 7 : e & 7;
+    if (!is_fine(lvl, p)) continue;
+    int lp, rp;
+    float wl, wr;
+    lerp_rule(lvl, p, lp, rp, wl, wr);
+    const float a = __fmul_rn(wl, w[e - (p - lp) * stride]);
+    const float b = __fmul_rn(wr, w[e + (rp - p) * stride]);
+    w[e] = __fadd_rn(a, b);
+  }
+}
+
+// Tile element (xi, yi, zi) for the o-th slot of the payload order, in which
+// consecutive slots run along the grouped z axis: slot oz = c*8 + jj holds
+// natural z = 8*jj + c of the tile.
+__device__ __forceinline__ void payload_slot(int o, int& xi, int& yi, int& c,
+                                             int& jj) {
+  xi = o / (8 * ZT);
+  yi = (o / ZT) & 7;
+  const int oz = o % ZT;
+  c = oz / (ZT / 8);
+  jj = oz % (ZT / 8);
+}
+
+__global__ void __launch_bounds__(NT)
+hybrid_fwd_v2_kernel(const float* __restrict__ v, float inv_q,
+                     uint16_t* __restrict__ pay, int* __restrict__ cw,
+                     float* __restrict__ rem, int X, int Y, int Z, int CL,
+                     int H, int nl) {
+  __shared__ float vs[TILE];
+  __shared__ float ws[TILE];
+  __shared__ unsigned wmax[64 * MAX_H];
+  const int x0 = blockIdx.y * 8, y0 = blockIdx.x * 8;
+  const int g = Z / 8;
+  const int k = __popc(chain_mask(nl));
+  const int RY = Y / 8 * k, RZ = Z / 8 * k;
+  for (int i = threadIdx.x; i < 64 * H; i += NT) wmax[i] = 0u;
+
+  for (int z0 = 0; z0 < Z; z0 += ZT) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < TILE; e += NT) {
+      const int xi = e / (8 * ZT), yi = (e / ZT) & 7, zi = e % ZT;
+      vs[e] = v[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + z0 + zi];
+    }
+    __syncthreads();
+    for (int lvl = 0; lvl < nl; ++lvl) {
+      for (int e = threadIdx.x; e < TILE; e += NT) ws[e] = vs[e];
+      __syncthreads();
+      for (int axis = 0; axis < 3; ++axis) {
+        interp_pass(ws, axis, lvl);
+        __syncthreads();
+      }
+      for (int e = threadIdx.x; e < TILE; e += NT) {
+        const int xi = e / (8 * ZT), yi = (e / ZT) & 7, pz = e & 7;
+        if (coeff3(lvl, xi, yi, pz)) vs[e] = __fsub_rn(vs[e], ws[e]);
+      }
+      __syncthreads();
+    }
+    for (int o = threadIdx.x; o < TILE; o += NT) {
+      int xi, yi, c, jj;
+      payload_slot(o, xi, yi, c, jj);
+      const float val = vs[(xi * 8 + yi) * ZT + 8 * jj + c];
+      const int jz = (z0 >> 3) + jj;
+      unsigned zz = 0u;
+      if (in_chain(nl, xi) && in_chain(nl, yi) && in_chain(nl, c)) {
+        const size_t r = ((size_t)((x0 >> 3) * k + rem_col(nl, xi)) * RY +
+                          (y0 >> 3) * k + rem_col(nl, yi)) * RZ +
+                         jz * k + rem_col(nl, c);
+        rem[r] = val;
+      } else {
+        const float t = __fmul_rn(val, inv_q);
+        const float h = t < 0.f ? __fsub_rn(t, 0.5f) : __fadd_rn(t, 0.5f);
+        const int sym = __float2int_rz(h);
+        zz = ((unsigned)sym << 1) ^ (unsigned)(sym >> 31);
+      }
+      const int gz = c * g + jz;
+      pay[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + gz] = (uint16_t)(zz & 0xFFFFu);
+      const unsigned w = zz ? 32u - (unsigned)__clz((int)zz) : 0u;
+      unsigned* slot = &wmax[(xi * 8 + yi) * H + gz / CL];
+      if (w > *slot) atomicMax(slot, w);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 64 * H; i += NT) {
+    const int col = i / H, h = i % H;
+    cw[((size_t)(x0 + col / 8) * Y + (y0 + col % 8)) * H + h] = (int)wmax[i];
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+hybrid_inv_v2_kernel(const uint16_t* __restrict__ pay,
+                     const float* __restrict__ rem, float q,
+                     float* __restrict__ out, int X, int Y, int Z, int nl) {
+  __shared__ float xs[TILE];
+  __shared__ float ys[TILE];
+  const int x0 = blockIdx.y * 8, y0 = blockIdx.x * 8;
+  const int g = Z / 8;
+  const int k = __popc(chain_mask(nl));
+  const int RY = Y / 8 * k, RZ = Z / 8 * k;
+
+  for (int z0 = 0; z0 < Z; z0 += ZT) {
+    __syncthreads();
+    for (int o = threadIdx.x; o < TILE; o += NT) {
+      int xi, yi, c, jj;
+      payload_slot(o, xi, yi, c, jj);
+      const int jz = (z0 >> 3) + jj;
+      float val;
+      if (in_chain(nl, xi) && in_chain(nl, yi) && in_chain(nl, c)) {
+        val = rem[((size_t)((x0 >> 3) * k + rem_col(nl, xi)) * RY +
+                   (y0 >> 3) * k + rem_col(nl, yi)) * RZ +
+                  jz * k + rem_col(nl, c)];
+      } else {
+        const unsigned zz =
+            pay[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + c * g + jz];
+        const int sym = (int)(zz >> 1) ^ -(int)(zz & 1u);
+        val = __fmul_rn(__int2float_rn(sym), q);
+      }
+      xs[(xi * 8 + yi) * ZT + 8 * jj + c] = val;
+    }
+    __syncthreads();
+    for (int lvl = nl - 1; lvl >= 0; --lvl) {
+      for (int e = threadIdx.x; e < TILE; e += NT) {
+        const int xi = e / (8 * ZT), yi = (e / ZT) & 7, pz = e & 7;
+        ys[e] = coeff3(lvl, xi, yi, pz) ? 0.f : xs[e];
+      }
+      __syncthreads();
+      for (int axis = 0; axis < 3; ++axis) {
+        interp_pass(ys, axis, lvl);
+        __syncthreads();
+      }
+      for (int e = threadIdx.x; e < TILE; e += NT) {
+        const int xi = e / (8 * ZT), yi = (e / ZT) & 7, pz = e & 7;
+        if (coeff3(lvl, xi, yi, pz)) xs[e] = __fadd_rn(xs[e], ys[e]);
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < TILE; e += NT) {
+      const int xi = e / (8 * ZT), yi = (e / ZT) & 7, zi = e % ZT;
+      out[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + z0 + zi] = xs[e];
+    }
+  }
+}
+
+}  // namespace
+
+MGARD_EXPORT const char* mgard_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Shapes are checked by the Python wrapper: X, Y multiples of 8, Z a
+// multiple of 128 and at most 1024, C*32 divides Z, nl in 1..3.
+MGARD_EXPORT int hybrid_fwd_v2(const void* v, float inv_q, void* pay, void* cw,
+                               void* rem, int X, int Y, int Z, int C, int nl,
+                               void* stream) {
+  const int CL = C * 32, H = Z / CL;
+  if (H > MAX_H) return (int)cudaErrorInvalidValue;
+  dim3 grid(Y / 8, X / 8);
+  hybrid_fwd_v2_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)v, inv_q, (uint16_t*)pay, (int*)cw, (float*)rem, X, Y, Z,
+      CL, H, nl);
+  return mgard_launch_status();
+}
+
+MGARD_EXPORT int hybrid_inv_v2(const void* pay, const void* rem, float q,
+                               void* out, int X, int Y, int Z, int nl,
+                               void* stream) {
+  dim3 grid(Y / 8, X / 8);
+  hybrid_inv_v2_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const uint16_t*)pay, (const float*)rem, q, (float*)out, X, Y, Z, nl);
+  return mgard_launch_status();
+}

@@ -1,0 +1,150 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources in ``csrc/`` are compiled at first use by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+ctypes (no PyTorch headers, so a build takes seconds). The library goes to
+``build/kernels/`` at the root of the checkout, named by a hash of the
+sources and flags, so a changed source builds anew and an unchanged one is
+reused.
+
+Each C entry point launches one kernel on the stream it is given and returns
+``cudaGetLastError()``; ``launch`` raises on a nonzero code and only then
+counts the launch in ``LAUNCHES``. Nothing here runs on import, and nothing
+falls back: a CUDA tensor either reaches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+
+# -fmad=false: the plain versions compute a*b + c as two rounded IEEE
+# operations; contracting them into an fma would change the low bits.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas=-v"]
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_SIGNATURES = {
+    # v, inv_q, pay, cw, rem, X, Y, Z, C, nl, stream
+    "hybrid_fwd_v2": [_P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # pay, rem, q, out, X, Y, Z, nl, stream
+    "hybrid_inv_v2": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
+    # rows, wide, rank, woff, rband, sb_off, base, resid, NB, C, sbc, K, E,
+    # stream
+    "bfp_encode": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # base, resid, rank, woff, rband, sb_off, cnt, out, wide, NB, C, sbc, K,
+    # E, stream
+    "bfp_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
+                   _P],
+}
+
+# Launch counts per kernel, bumped only where a kernel was launched.
+LAUNCHES = {name: 0 for name in _SIGNATURES}
+# nvcc's output of the last build (register and shared-memory use).
+BUILD_LOG = ""
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [Path(home) / "bin" / "nvcc"] if home else []
+    cands += [_DEFAULT_NVCC]
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit of the GPU host")
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cus, hdrs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cus + hdrs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libmgard_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless it exists."""
+    global BUILD_LOG
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    cus, _ = _sources()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+           *map(str, cus)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG = res.stdout + res.stderr
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        L = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(L, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        L.mgard_cuda_error_string.argtypes = [ctypes.c_int]
+        L.mgard_cuda_error_string.restype = ctypes.c_char_p
+        _lib = L
+    return _lib
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what every wrapper checks before handing a pointer over)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name}: must be contiguous on {device}")
+
+
+def stream(device) -> int:
+    """Handle of PyTorch's current CUDA stream on ``device``."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name``; raise if CUDA refused it, else count it."""
+    L = lib()
+    rc = getattr(L, name)(*args)
+    if rc:
+        msg = L.mgard_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+    LAUNCHES[name] += 1

@@ -1,0 +1,604 @@
+"""BFP — width-sorted prefix bitplane codec, blob format "BFP5" (port of
+``mgard_tpu/lossless/bfp.py``; the wire format is documented there and in
+doc/FORMAT.md, and the two packages write identical bytes for identical
+symbols).
+
+Per superblock of sb 32-symbol blocks, chunks of C blocks are stably sorted
+by residual length (a counting sort, ``_sort_plan``); every block stores K
+dense base planes and E residual planes of which exactly the chunks with
+rl > j hold plane K+j, so after sorting each residual plane is a prefix.
+Chunks wider than K+E ship verbatim as exceptions.
+
+Two CUDA kernels do the bit packing on the GPU: ``encode_bands`` (K2,
+csrc/bfp.cu) and ``decode_bands`` (K3). Both take natural-order chunk rows
+and the sort rank: the sort is a permutation of destinations, so no row
+gather is needed on either side. Each wrapper takes the plain version
+beside it for CPU tensors and launches its kernel for CUDA tensors.
+
+Packed words are int32 bit patterns and u16 payloads ``torch.int16`` bit
+patterns (torch lacks shifts and max on uint32/uint16 on the CPU).
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops.compact import masked_indices
+from ..ops.hybrid import bit_length
+from .bfx import BS, _bit_transpose32, _unzigzag, _zigzag
+from .huffman import device_get_prefix
+
+SB_BLOCKS = 16384
+# Below SB_PALLAS_MIN*32 symbols a stream uses BFX (highlevel
+# ``_effective_raw_lt``), and an explicit v2 superblock must reach it
+# (``_v2_sb``): a format threshold, the same in both packages.
+SB_PALLAS_MIN = 8192
+SB_BLOCKS_SMALL = 256
+E_DEFAULT = 8
+LANES = 128
+CHUNK = 8
+
+_MAGIC = b"BFP5"
+_HDR = "<4sQQBBIBQ"
+
+_I32 = torch.int32
+
+
+def _chunk_widths(zz_rows):
+    """(NC,) bit widths of the u32 max of each row of int32 zigzag
+    patterns (a negative int32 has bit 31 set: width 32)."""
+    w = bit_length(zz_rows.amax(1))
+    return torch.where(zz_rows.amin(1) < 0, torch.full_like(w, 32), w)
+
+
+# ----------------------------------------------------------------------
+# Counting sort (shared by encode and decode; must be bit-identical)
+# ----------------------------------------------------------------------
+def _sort_plan(rl2, E: int):
+    """Stable descending counting sort of rl2 (NSB, sbc) in [0, E].
+
+    Returns (rank (NSB, sbc) int32 — destination column of each natural
+    chunk, cnt (NSB, E) int32 — cnt[:, j] = #(rl > j))."""
+    NSB, sbc = rl2.shape
+    rank = torch.zeros((NSB, sbc), dtype=_I32, device=rl2.device)
+    cnt_gt = torch.zeros((NSB, 1), dtype=_I32, device=rl2.device)
+    cnts = []
+    for k in range(E, -1, -1):
+        eq = (rl2 == k).to(_I32)
+        # dtype= pins int32: torch promotes cumsum/sum to int64 otherwise
+        prefix = torch.cumsum(eq, 1, dtype=_I32) - eq
+        rank = rank + eq * (cnt_gt + prefix)
+        cnts.append(cnt_gt)  # before adding bucket k: #(rl > k)
+        cnt_gt = cnt_gt + torch.sum(eq, 1, keepdim=True, dtype=_I32)
+    cnt = torch.cat([cnts[E - j] for j in range(E)], dim=1)
+    return rank, cnt
+
+
+def _plan_offsets(cnt_c, C: int):
+    """Per-band row counts rband (NSB, E), plane row offsets woff within
+    each superblock, superblock row offsets sb_off (NSB,), and the total
+    row count (0-dim tensor). Each plane stores C bands of rband rows."""
+    rband = (cnt_c + (LANES - 1)) // LANES
+    rows = rband * C
+    woff = torch.cumsum(rows, 1, dtype=_I32) - rows
+    tot = torch.sum(rows, 1, dtype=_I32)
+    sb_off = torch.cumsum(tot, 0, dtype=_I32) - tot
+    return rband, woff, sb_off, sb_off[-1] + tot[-1]
+
+
+# ----------------------------------------------------------------------
+# K2 / K3: plain versions and kernel wrappers
+# ----------------------------------------------------------------------
+def _band_index(woff, rband, sb_off, j: int, C: int, sbc: int):
+    """Flat resid word index of (sb, band b, column c') for plane j, and
+    the in-band mask c' < rband*128. Shapes (NSB, C, sbc)."""
+    dev = woff.device
+    rb = rband[:, j].long()[:, None, None]
+    start = (sb_off.long() + woff[:, j].long())[:, None, None]
+    b = torch.arange(C, device=dev)[None, :, None]
+    col = torch.arange(sbc, device=dev)[None, None, :]
+    return (start + b * rb) * LANES + col, col
+
+
+def encode_bands_plain(rows, rank, woff, rband, sb_off, K: int, E: int,
+                       sb: int, C: int, alloc_rows: int):
+    """Plain version of K2: natural-order zigzag chunk rows (NC, 32C)
+    (int16 = u16 bits, or int32 = u32 bits) + rank (NSB, sbc) -> (base
+    (NSB, max(K,1), C, sbc) int32, resid2d (alloc_rows, 128) int32)."""
+    NC = rows.shape[0]
+    sbc = sb // C
+    NSB = NC // sbc
+    dev = rows.device
+    rank_g = (rank.long()
+              + torch.arange(NSB, device=dev)[:, None] * sbc).reshape(-1)
+    srt = torch.empty_like(rows)
+    srt[rank_g] = rows
+    u = srt.to(_I32)
+    if rows.dtype == torch.int16:
+        u = u & 0xFFFF
+    # zi[k, s, b, c'] = symbol k of block slot b of sorted chunk c'
+    zi = u.reshape(NSB, sbc, C, BS).permute(3, 0, 2, 1)
+    zt = _bit_transpose32(zi)
+    base = torch.zeros((NSB, max(K, 1), C, sbc), dtype=_I32, device=dev)
+    if K:
+        base[:, :K] = zt[:K].permute(1, 0, 2, 3)
+    resid = torch.zeros(alloc_rows * LANES, dtype=_I32, device=dev)
+    for j in range(E):
+        idx, col = _band_index(woff, rband, sb_off, j, C, sbc)
+        ok = (col < rband[:, j].long()[:, None, None] * LANES).expand(
+            NSB, C, sbc)
+        resid[idx[ok]] = zt[K + j][ok]
+    return base, resid.reshape(alloc_rows, LANES)
+
+
+def decode_bands_plain(base, resid2d, rank, woff, rband, sb_off, cnt_c,
+                       K: int, E: int, sb: int, C: int, wide: bool):
+    """Plain version of K3: band buffers -> natural-order zigzag chunk rows
+    (NC, 32C), int32 (wide) or int16 (u16 bits)."""
+    NSB = base.shape[0]
+    sbc = sb // C
+    dev = base.device
+    flat = resid2d.reshape(-1)
+    zt = torch.zeros((32, NSB, C, sbc), dtype=_I32, device=dev)
+    if K:
+        zt[:K] = base[:, :K].permute(1, 0, 2, 3)
+    for j in range(E):
+        idx, col = _band_index(woff, rband, sb_off, j, C, sbc)
+        ok = (col < cnt_c[:, j].long()[:, None, None]).expand(NSB, C, sbc)
+        zt[K + j] = torch.where(ok, flat[torch.where(ok, idx, 0)], 0)
+    srt = _bit_transpose32(zt).permute(1, 3, 2, 0).reshape(NSB * sbc, C * BS)
+    rank_g = (rank.long()
+              + torch.arange(NSB, device=dev)[:, None] * sbc).reshape(-1)
+    nat = srt[rank_g]
+    return nat if wide else nat.to(torch.int16)
+
+
+def _check_plan(rank, woff, rband, sb_off, NSB, sbc, E, device):
+    check = kernels.check_tensor
+    check("rank", rank, _I32, (NSB, sbc), device)
+    check("woff", woff, _I32, (NSB, E), device)
+    check("rband", rband, _I32, (NSB, E), device)
+    check("sb_off", sb_off, _I32, (NSB,), device)
+
+
+def encode_bands(rows, rank, woff, rband, sb_off, K: int, E: int, sb: int,
+                 C: int, alloc_rows: int):
+    """K2 wrapper (replaces mgard_tpu/lossless/bfp.py _encode_pallas), both
+    modes: the cf stream (u16 rows) and the generic stream (u16 or u32
+    rows). Same outputs as encode_bands_plain."""
+    dev = rows.device
+    if rows.dtype not in (torch.int16, _I32) or rows.ndim != 2:
+        raise ValueError(f"rows: expected int16/int32 (NC, 32C), got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    if sb % (C * LANES) or rows.shape[1] != C * BS or not 1 <= E <= 15:
+        raise ValueError(f"bad geometry sb={sb} C={C} E={E}")
+    if K < 0 or K + E > 32:
+        raise ValueError(f"K={K}, E={E}: K+E must be at most 32")
+    NC = rows.shape[0]
+    sbc = sb // C
+    if NC % sbc:
+        raise ValueError(f"{NC} chunks do not fill superblocks of {sbc}")
+    NSB = NC // sbc
+    kernels.check_tensor("rows", rows, rows.dtype, (NC, C * BS), dev)
+    _check_plan(rank, woff, rband, sb_off, NSB, sbc, E, dev)
+    if dev.type == "cpu":
+        return encode_bands_plain(rows, rank, woff, rband, sb_off, K, E, sb,
+                                  C, alloc_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    base = torch.zeros((NSB, max(K, 1), C, sbc), dtype=_I32, device=dev)
+    resid = torch.zeros((alloc_rows, LANES), dtype=_I32, device=dev)
+    kernels.launch("bfp_encode", rows.data_ptr(), int(rows.dtype == _I32),
+                   rank.data_ptr(), woff.data_ptr(), rband.data_ptr(),
+                   sb_off.data_ptr(), base.data_ptr(), resid.data_ptr(),
+                   NC * C, C, sbc, K, E, kernels.stream(dev))
+    return base, resid
+
+
+def decode_bands(base, resid2d, rank, woff, rband, sb_off, cnt_c, K: int,
+                 E: int, sb: int, C: int, wide: bool):
+    """K3 wrapper (replaces mgard_tpu/lossless/bfp.py _decode_pallas), both
+    modes; emits natural chunk order. Same output as decode_bands_plain."""
+    dev = base.device
+    if sb % (C * LANES) or not 1 <= E <= 15 or K < 0 or K + E > 32:
+        raise ValueError(f"bad geometry sb={sb} C={C} K={K} E={E}")
+    NSB = base.shape[0]
+    sbc = sb // C
+    kernels.check_tensor("base", base, _I32, (NSB, max(K, 1), C, sbc), dev)
+    if resid2d.dtype != _I32 or resid2d.ndim != 2 or \
+            resid2d.shape[1] != LANES or not resid2d.is_contiguous() or \
+            resid2d.device != dev:
+        raise ValueError("resid2d: expected contiguous int32 (rows, 128) "
+                         f"on {dev}")
+    _check_plan(rank, woff, rband, sb_off, NSB, sbc, E, dev)
+    kernels.check_tensor("cnt", cnt_c, _I32, (NSB, E), dev)
+    if dev.type == "cpu":
+        return decode_bands_plain(base, resid2d, rank, woff, rband, sb_off,
+                                  cnt_c, K, E, sb, C, wide)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    out = torch.empty((NSB * sbc, C * BS),
+                      dtype=_I32 if wide else torch.int16, device=dev)
+    kernels.launch("bfp_decode", base.data_ptr(), resid2d.data_ptr(),
+                   rank.data_ptr(), woff.data_ptr(), rband.data_ptr(),
+                   sb_off.data_ptr(), cnt_c.data_ptr(), out.data_ptr(),
+                   int(wide), NSB * sb, C, sbc, K, E, kernels.stream(dev))
+    return out
+
+
+# ----------------------------------------------------------------------
+# Device cores
+# ----------------------------------------------------------------------
+def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
+                C: int = CHUNK):
+    """sym_padded (N,) int32, N % (sb*32) == 0.
+
+    Returns (base (NSB, max(K,1), C, sbc) int32 [sorted order], crl (NC,)
+    int32 [chunk residual lengths, natural order], resid2d (alloc_rows, 128)
+    int32, resid_rows, exc_ids (exc_cap,) int32, exc_blocks (exc_cap, 32C)
+    int32, exc_count)."""
+    N = sym_padded.shape[0]
+    NB = N // BS
+    NC = NB // C
+    NSB = NB // sb
+    sbc = sb // C
+    sym_rows = sym_padded.reshape(NC, C * BS)
+    zz_rows = _zigzag(sym_rows)
+    cw = _chunk_widths(zz_rows)
+    # exception chunks ship verbatim in the side stream; their sorted-stream
+    # content is zeroed (crl = 0, zero planes), as in the JAX package
+    mask = cw > (K + E)
+    exc_count = torch.sum(mask, dtype=_I32)
+    exc_ids = masked_indices(mask, exc_cap, NC)
+    exc_blocks = sym_rows[exc_ids.clamp(0, NC - 1).long()]
+    crl = torch.where(mask, 0, (cw - K).clamp(0, E)).to(_I32)
+    zz_rows = torch.where(mask[:, None], 0, zz_rows)
+    # narrow payload: with K+E <= 16 every surviving code fits 16 bits
+    payload = zz_rows.to(torch.int16) if (K + E) <= 16 else zz_rows
+    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
+    rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
+    alloc_rows = (NSB + 1) * E * (sb // LANES)
+    base, resid2d = encode_bands(payload.contiguous(), rank_c, woff, rband,
+                                 sb_off, K, E, sb, C, alloc_rows)
+    return base, crl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count
+
+
+def decode_core(base4d, crl, resid2d, exc_ids, exc_blocks, K: int, E: int,
+                sb: int, NB: int, C: int = CHUNK):
+    """Inverse of encode_core -> (NB*32,) int32 symbols."""
+    NC = NB // C
+    NSB = NB // sb
+    sbc = sb // C
+    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
+    rband, woff, sb_off, _ = _plan_offsets(cnt_c, C)
+    narrow = (K + E) <= 16
+    rows = decode_bands(base4d, resid2d, rank_c, woff, rband, sb_off, cnt_c,
+                        K, E, sb, C, wide=not narrow)
+    zz = rows.to(_I32) & 0xFFFF if narrow else rows
+    sym_rows = _unzigzag(zz)
+    keep = exc_ids < NC
+    sym_rows[exc_ids[keep].long()] = exc_blocks[keep]
+    return sym_rows.reshape(NB * BS)
+
+
+def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int, C: int):
+    """Prepared-payload encode (hybrid v2 cf stream): payload_rows (NC, 32C)
+    int16 u16 zigzag codes, grouped and exception-free; crl (NC,) int32.
+    Returns (base, resid2d, resid_rows)."""
+    NC = payload_rows.shape[0]
+    NSB = NC * C // sb
+    sbc = sb // C
+    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
+    rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
+    alloc_rows = (NSB + 1) * E * (sb // LANES)
+    base, resid2d = encode_bands(payload_rows, rank_c, woff, rband, sb_off,
+                                 K, E, sb, C, alloc_rows)
+    return base, resid2d, resid_rows
+
+
+def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int, NB: int,
+                   C: int):
+    """Inverse of encode_core_zz -> (NC, 32C) int16 u16 zigzag rows in
+    natural order (the hybrid-v2 inverse consumes them directly)."""
+    NSB = NB // sb
+    sbc = sb // C
+    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
+    rband, woff, sb_off, _ = _plan_offsets(cnt_c, C)
+    return decode_bands(base4d, resid2d, rank_c, woff, rband, sb_off, cnt_c,
+                        K, E, sb, C, wide=False)
+
+
+# ----------------------------------------------------------------------
+# Wire compaction (host side): map between the device row-padded band
+# layout and the compact valid-words wire layout, from the sidecar alone
+# ----------------------------------------------------------------------
+def _band_geometry(crl_h: np.ndarray, E: int, C: int, sb: int):
+    """Per-(superblock, plane) valid word count cnt, band row count rband,
+    global band start row, and total padded rows. Counts are
+    permutation-invariant, so the sidecar alone determines them."""
+    sbc = sb // C
+    NSB = (crl_h.shape[0] * C) // sb
+    crl2 = crl_h.reshape(NSB, sbc)
+    cnt = (crl2[:, None, :] > np.arange(E)[None, :, None]).sum(2)
+    rband = -(-cnt // LANES)
+    rows_p = (rband * C).reshape(-1)
+    ends = np.cumsum(rows_p)
+    band_start = (ends - rows_p).reshape(NSB, E)
+    rows = int(ends[-1]) if ends.size else 0
+    return cnt, rband, band_start, rows
+
+
+def _compact_sb(out: np.ndarray, resid_flat: np.ndarray, cnt, rband,
+                band_start, C: int, s: int) -> int:
+    """Write superblock s's compact residual words into out; returns the
+    word count written."""
+    o = 0
+    for p in range(cnt.shape[1]):
+        c = int(cnt[s, p])
+        if not c:
+            continue
+        r = int(rband[s, p])
+        st = int(band_start[s, p]) * LANES
+        band = resid_flat[st : st + C * r * LANES].reshape(C, r * LANES)
+        m = C * c
+        out[o : o + m].reshape(C, c)[:] = band[:, :c]
+        o += m
+    return o
+
+
+def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
+                resid2d, resid_rows, exc_cnt: int) -> list:
+    """BFP5 blob as bytesink parts: header, nibble sidecar, base planes and
+    one residual Fill per superblock (band compaction writes straight into
+    the final blob)."""
+    from ..utils.bytesink import Fill
+
+    rows_i = int(resid_rows)
+    crl_h = crl.cpu().numpy()
+    rl_h = crl_h.astype(np.uint8)
+    if rl_h.shape[0] % 2:
+        rl_h = np.concatenate([rl_h, np.zeros(1, np.uint8)])
+    nib = rl_h[0::2] | (rl_h[1::2] << 4)
+    base_h = (base[:, :K].contiguous().cpu().numpy().view("<u4") if K
+              else np.zeros(0, "<u4"))
+    resid_flat = device_get_prefix(resid2d.reshape(-1),
+                                   rows_i * LANES).view("<u4")
+    cnt, rband, band_start, _ = _band_geometry(crl_h, E, C, sb)
+    words = int(cnt.sum()) * C
+    head = struct.pack(_HDR, _MAGIC, n, words, K, E, sb, C, exc_cnt)
+    parts = [head, nib.astype(np.uint8), base_h]
+    words_sb = cnt.sum(1) * C
+    for s in range(cnt.shape[0]):
+        if int(words_sb[s]):
+            parts.append(Fill(4 * int(words_sb[s]), lambda d, s=s: _compact_sb(
+                d.view("<u4"), resid_flat, cnt, rband, band_start, C, s)))
+    return parts
+
+
+def serialize_prepared_parts(n: int, K: int, E: int, sb: int, C: int, crl,
+                             base, resid2d, resid_rows) -> list:
+    """encode_core_zz result as bytesink parts (exception-free blob)."""
+    return _blob_parts(n, K, E, sb, C, crl, base, resid2d, resid_rows, 0)
+
+
+def _expand_resid(compact: np.ndarray, crl_h: np.ndarray, E: int, C: int,
+                  sb: int) -> np.ndarray:
+    """Inverse of the wire compaction -> (rows + CAP, 128) uint32."""
+    cnt, rband, band_start, rows = _band_geometry(crl_h, E, C, sb)
+    total = int(cnt.sum()) * C
+    if compact.shape[0] != total:
+        raise ValueError(f"BFP resid stream has {compact.shape[0]} words, "
+                         f"sidecar implies {total}")
+    CAP = E * (sb // LANES)
+    buf = np.zeros(((rows + CAP) * LANES,), np.uint32)
+    o = 0
+    for s in range(cnt.shape[0]):
+        for p in range(cnt.shape[1]):
+            c = int(cnt[s, p])
+            if not c:
+                continue
+            r = int(rband[s, p])
+            st = int(band_start[s, p]) * LANES
+            band = buf[st : st + C * r * LANES].reshape(C, r * LANES)
+            band[:, :c] = compact[o : o + C * c].reshape(C, c)
+            o += C * c
+    return buf.reshape(-1, LANES)
+
+
+def _parse(data: bytes, offset: int):
+    """Header, sidecar and base planes of a BFP5 blob (host arrays)."""
+    magic, n, resid_words, K, E, sb, C, cnt = struct.unpack_from(
+        _HDR, data, offset)
+    if magic != _MAGIC:
+        raise ValueError("bad BFP blob")
+    p = offset + struct.calcsize(_HDR)
+    geom = dict(n=n, resid_words=resid_words, K=K, E=E, sb=sb, C=C, cnt=cnt)
+    if n == 0:
+        return geom, None, None, p
+    if not (1 <= E <= 15 and K + E <= 32 and sb % LANES == 0 and C >= 1
+            and sb % (C * LANES) == 0):
+        raise ValueError(f"BFP blob geometry K={K} E={E} sb={sb} C={C}")
+    NB = _pad_to(n, sb) // BS
+    NSB = NB // sb
+    NC = NB // C
+    nnib = (NC + 1) // 2
+    nib = np.frombuffer(data, np.uint8, nnib, p)
+    p += nnib
+    rl = np.empty(nnib * 2, np.int32)
+    rl[0::2] = nib & 0xF
+    rl[1::2] = nib >> 4
+    rl = rl[:NC]
+    if rl.max(initial=0) > E:
+        raise ValueError(f"BFP sidecar holds residual lengths above E={E}")
+    base = np.zeros((NSB, max(K, 1), C, sb // C), np.uint32)
+    if K:
+        base[:, :K] = np.frombuffer(data, "<u4", K * NB, p).reshape(
+            NSB, K, C, sb // C)
+        p += 4 * K * NB
+    return geom, rl, base, p
+
+
+def _to_dev(a: np.ndarray, device):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+def deserialize_prepared(data: bytes, offset: int = 0, device="cpu"):
+    """Parse an exception-free BFP5 blob into tensors for decode_core_zz.
+    Returns (base, crl, resid2d, (n, K, E, sb, C), consumed)."""
+    geom, rl, base, p = _parse(data, offset)
+    if geom["cnt"]:
+        raise ValueError(
+            "prepared-payload decode requires an exception-free blob")
+    if geom["n"] == 0:
+        raise ValueError("empty prepared-payload blob")
+    resid = np.frombuffer(data, "<u4", geom["resid_words"], p)
+    p += 4 * geom["resid_words"]
+    rbuf = _expand_resid(resid, rl, geom["E"], geom["C"], geom["sb"])
+    return (_to_dev(base, device), _to_dev(rl, device), _to_dev(rbuf, device),
+            tuple(geom[k] for k in ("n", "K", "E", "sb", "C")), p - offset)
+
+
+# ----------------------------------------------------------------------
+# Parameter selection (sticky per stream size)
+# ----------------------------------------------------------------------
+# K (and the exception bucket) per stream key, chosen once from the first
+# stream's width histogram: later streams of the same size reuse it.
+_K_CACHE: dict = {}
+
+
+def choose_K(hist_cw: np.ndarray, E: int, C: int = CHUNK) -> int:
+    """Pick the base plane count minimizing expected words/block:
+    cost(K) = K + E_cw[clip(cw-K,0,E)] + P_cw(cw>K+E) * (1 + 32C)/C."""
+    totc = int(hist_cw.sum())
+    if totc == 0:
+        return 0
+    w = np.arange(33)
+    best_k, best_c = 0, 1e18
+    for K in range(0, 33 - E):
+        rlv = np.clip(w - K, 0, E)
+        p_exc = hist_cw[K + E + 1 :].sum() / totc
+        c = K + float((hist_cw * rlv).sum()) / totc + p_exc * (1 + C * BS) / C
+        if c < best_c:
+            best_k, best_c = K, c
+    return best_k
+
+
+def _width_hist(sym, C: int = CHUNK) -> np.ndarray:
+    """Chunk-max width histogram (33,)."""
+    cw = _chunk_widths(_zigzag(sym.reshape(-1, C * BS)))
+    return torch.bincount(cw, minlength=33).cpu().numpy()
+
+
+def _choose_sb(n: int, device) -> int:
+    """The large superblock on the kernel path (CUDA), the small one
+    elsewhere: the CPU picks what the JAX package picks on the CPU."""
+    return (SB_BLOCKS if n >= SB_BLOCKS * BS and device.type == "cuda"
+            else SB_BLOCKS_SMALL)
+
+
+def _pad_to(n: int, sb: int) -> int:
+    q = sb * BS
+    return (n + q - 1) // q * q
+
+
+def _exc_bucket(count: int, NB: int) -> int:
+    cap = max(256, 1 << max(int(count) - 1, 1).bit_length())
+    return min(cap, NB)
+
+
+def encode_device(symbols, config=None):
+    """Device phase: launch the pack and return opaque state for
+    serialize_device_parts(). K is sticky per (padded size, E, C)."""
+    n = int(symbols.shape[0])
+    if n == 0:
+        return ("empty",)
+    dev = symbols.device
+    sb = int(getattr(config, "bfp_sb_blocks", 0) or 0) or _choose_sb(n, dev)
+    if sb % LANES or sb < LANES:
+        raise ValueError(f"bfp_sb_blocks must be a multiple of {LANES}, "
+                         f"got {sb}")
+    if n < sb * BS:
+        sb = _choose_sb(n, dev)  # stream smaller than one tuned superblock
+    npad = _pad_to(n, sb)
+    sym = symbols.to(_I32).reshape(-1)
+    if npad != n:
+        sym = torch.cat([sym, torch.zeros(npad - n, dtype=_I32, device=dev)])
+    NB = npad // BS
+    E = int(getattr(config, "bfp_resid_planes", 0) or E_DEFAULT)
+    if not 1 <= E <= 15:
+        # residual lengths are 4-bit nibbles on the wire
+        raise ValueError(f"bfp_resid_planes must be in [1, 15], got {E}")
+    C = int(getattr(config, "bfp_chunk", 0) or CHUNK)
+    if C < 1 or C > 255 or (sb % C):
+        raise ValueError(f"bfp_chunk must divide sb, got {C}")
+    # bands need whole 128-word rows: halve C until sb % (C*128) == 0
+    while C > 1 and sb % (C * LANES):
+        C //= 2
+    K = int(getattr(config, "bfp_base_planes", 0) or 0)
+    key = (npad, E, C)
+    if not K:
+        if key in _K_CACHE:
+            K = _K_CACHE[key][0]
+        else:
+            hcw = _width_hist(sym, C)
+            K = choose_K(hcw, E, C)
+            _K_CACHE[key] = (K, _exc_bucket(int(hcw[K + E + 1 :].sum()),
+                                            NB // C))
+    exc_cap = _K_CACHE.get(key, (K, max(256, (NB // C) >> 8)))[1]
+    out = encode_core(sym, K, E, sb, exc_cap, C)
+    return ("bfp", n, K, E, sb, exc_cap, sym, out, C)
+
+
+def serialize_device_parts(state) -> list:
+    if state[0] == "empty":
+        return [struct.pack(_HDR, _MAGIC, 0, 0, 0, 0, SB_BLOCKS_SMALL, CHUNK,
+                            0)]
+    _, n, K, E, sb, exc_cap, sym, out, C = state
+    base, rl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count = out
+    cnt = int(exc_count)
+    NB = _pad_to(n, sb) // BS
+    if cnt > exc_cap:
+        # re-run once at the exact count's bucket
+        exc_cap = _exc_bucket(cnt, NB // C)
+        _K_CACHE[(_pad_to(n, sb), E, C)] = (K, exc_cap)
+        out = encode_core(sym, K, E, sb, exc_cap, C)
+        base, rl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count = out
+        cnt = int(exc_count)
+    ids_h = device_get_prefix(exc_ids, cnt).astype("<u4")
+    blk_h = device_get_prefix(exc_blocks, cnt).astype("<i4")
+    return (_blob_parts(n, K, E, sb, C, rl, base, resid2d, resid_rows, cnt)
+            + [ids_h, blk_h])
+
+
+def encode(symbols, config=None) -> bytes:
+    from ..utils.bytesink import join
+
+    return join(serialize_device_parts(encode_device(symbols, config)))
+
+
+def decode(data: bytes, offset: int = 0, device="cpu"):
+    """BFP5 blob -> ((n,) int32 symbols on device, bytes consumed)."""
+    geom, rl, base, p = _parse(data, offset)
+    n, K, E, sb, C, cnt = (geom[k] for k in ("n", "K", "E", "sb", "C", "cnt"))
+    if n == 0:
+        return torch.zeros(0, dtype=_I32, device=device), p - offset
+    NB = _pad_to(n, sb) // BS
+    NC = NB // C
+    resid = np.frombuffer(data, "<u4", geom["resid_words"], p)
+    p += 4 * geom["resid_words"]
+    ids = np.frombuffer(data, "<u4", cnt, p).astype(np.int32)
+    p += 4 * cnt
+    blocks = np.frombuffer(data, "<i4", cnt * C * BS, p).reshape(cnt, C * BS)
+    p += 4 * cnt * C * BS
+    if cnt and (ids.min() < 0 or ids.max() >= NC):
+        raise ValueError("BFP exception id out of range")
+    rbuf = _expand_resid(resid, rl, E, C, sb)
+    sym = decode_core(
+        _to_dev(base, device), _to_dev(rl, device), _to_dev(rbuf, device),
+        torch.from_numpy(ids).to(device),
+        torch.from_numpy(blocks.copy()).to(device), K, E, sb, NB, C)
+    return sym[:n], p - offset
