@@ -4,22 +4,31 @@
 
 Phases (each prints a line; any failure exits nonzero before the result):
   1. device: require CUDA; print the card's name and power limit;
-  2. build the CUDA kernels K1-K4 from mgard_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels K1-K8 from mgard_tpu_torch/csrc with nvcc (one
+     process per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the
-     512^3 geometry of the main path (and a few small geometries), with
-     times from CUDA events;
+     512^3 geometries of the main path and of Hybrid+BFX (K7/K8 also at
+     8192^2, and all at a few small geometries), with times from CUDA
+     events;
   4. the main path: compress + decompress a 512^3 float32 field at
      tol=1e-3 (s=inf, ABS, default Config) through the public API, with the
-     launch counters reset just before and read just after;
-  5. a 256^3 stream written on the card, decoded on the CPU (plain path)
-     and on the card, for the flag-1 path and the flag-0 fallback.
-The second-to-last line is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+     launch counters reset just before and read just after (K1-K4);
+  5. Hybrid+BFX (Config.lossless=BFX, flag 0): the same field and
+     tolerance, the same counters (K5-K8);
+  6. the main path at 128^3: flag 1 with a BFX remainder (K1-K6);
+  7. 256^3 streams across devices: written on the card and decoded on the
+     CPU (plain path) and on the card, for the flag-1 path, the flag-0
+     fallback and Hybrid+BFX; and a Hybrid+BFX stream written on the CPU
+     (sb=256, align=1) decoded on the card.
+The second-to-last line is a JSON summary of the kernels (launches from the
+path each kernel belongs to: K1-K4 phase 4, K5-K8 phase 5); the last line
+is {"ok": true, "device": {...}}.
 """
 
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -42,7 +51,18 @@ REPO_KERNELS = {
                    "mgard_tpu/lossless/bfp.py:329"),
     "hybrid_inv_v2": ("mgard_tpu_torch/csrc/hybrid_v2.cu",
                       "mgard_tpu/ops/hybrid.py:682"),
+    "bfx_encode": ("mgard_tpu_torch/csrc/bfx.cu",
+                   "mgard_tpu/lossless/bfx.py:235"),
+    "bfx_decode": ("mgard_tpu_torch/csrc/bfx.cu",
+                   "mgard_tpu/lossless/bfx.py:264"),
+    "hybrid_fwd": ("mgard_tpu_torch/csrc/hybrid.cu",
+                   "mgard_tpu/ops/hybrid.py:333"),
+    "hybrid_inv": ("mgard_tpu_torch/csrc/hybrid.cu",
+                   "mgard_tpu/ops/hybrid.py:377"),
 }
+MAIN_PATH = ("hybrid_fwd_v2", "bfp_encode", "bfp_decode", "hybrid_inv_v2")
+BFX_PATH = ("hybrid_fwd", "bfx_encode", "bfx_decode", "hybrid_inv")
+SMALL_MAIN_PATH = MAIN_PATH + ("bfx_encode", "bfx_decode")
 
 
 def phase(msg):
@@ -82,6 +102,32 @@ def max_abs(x, y):
     if x.dtype in (torch.int16, torch.int32):
         x, y = x.to(torch.int64), y.to(torch.int64)
     return float((x - y).abs().max()) if x.numel() else 0.0
+
+
+def section_head(blob):
+    """(front-end flag, backend id, BFX2 (sb, align) or None) of the first
+    subdomain's lossless section (the remainder section of a flag-1
+    stream)."""
+    from mgard_tpu_torch import highlevel as HL
+    from mgard_tpu_torch.formats.metadata import Metadata
+
+    pos = Metadata.deserialize(blob)[1] + 8 + len(HL._EMPTY_OUTLIERS)
+    flag = blob[pos]
+    pos += 1
+    if flag == 1:
+        pos += 8 + struct.unpack_from("<Q", blob, pos)[0]
+    backend = blob[pos]
+    head = struct.unpack_from("<4sQQII", blob, pos + 9)
+    return flag, backend, head[3:] if head[0] == b"BFX2" else None
+
+
+def mixed_symbols(n, gen, wide=False):
+    """int32 symbols of mixed widths (zero, narrow, 20-bit), or spanning the
+    whole int32 range."""
+    if wide:
+        return gen.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    return (gen.standard_normal(n) * gen.choice([0, 3, 300, 3e5], n)).astype(
+        np.int32)
 
 
 class Recorder:
@@ -126,7 +172,7 @@ def main():
     import mgard_tpu_torch as M
     from mgard_tpu_torch import highlevel as HL, kernels
     from mgard_tpu_torch.hierarchy import get_hierarchy
-    from mgard_tpu_torch.lossless import bfp as B
+    from mgard_tpu_torch.lossless import bfp as B, bfx as X
     from mgard_tpu_torch.ops import hybrid as Hy
     from mgard_tpu_torch.ops.refactor import decompose
     from mgard_tpu_torch.utils.bytesink import join
@@ -273,6 +319,95 @@ def main():
     del pay, cw, rem, out_k, out_p, back_k, back_p, prow
     torch.cuda.empty_cache()
 
+    # K7/K8, the flag-0 front end: bit-equal to the plain versions
+    def check_flag0(v, nl, q, timed):
+        inv_q, qf = HL._inv_q(q), HL._f32(q)
+        sk, rk = Hy.local_transform_fused(v, inv_q, nl)
+        sp, rp = Hy.local_transform(v, inv_q, nl)
+        if not (torch.equal(sk, sp) and torch.equal(rk, rp)):
+            raise AssertionError(
+                f"K7 differs from plain at {tuple(v.shape)} nl={nl}: "
+                f"{max(max_abs(sk, sp), max_abs(rk, rp))}")
+        ok = Hy.local_inverse_fused(sk, rk, qf, nl)
+        op = Hy.local_inverse(sk, rk, qf, nl)
+        if not torch.equal(ok, op):
+            raise AssertionError(f"K8 differs from plain at {tuple(v.shape)}"
+                                 f" nl={nl}: {max_abs(ok, op)}")
+        if not timed:
+            return None
+        return (time_ms(lambda: Hy.local_transform_fused(v, inv_q, nl)),
+                time_ms(lambda: Hy.local_transform(v, inv_q, nl), 2),
+                time_ms(lambda: Hy.local_inverse_fused(sk, rk, qf, nl)),
+                time_ms(lambda: Hy.local_inverse(sk, rk, qf, nl), 2))
+
+    for shp in ((64, 256), (16, 16, 128), (64, 200), (24, 40, 56)):
+        vs = torch.from_numpy(gen.standard_normal(shp).astype(np.float32))
+        for nl in (1, 2, 3):
+            check_flag0(vs.to(dev), nl, 1e-3, timed=False)
+    phase("phase 3 small K7/K8 at (64,256), (16,16,128), (64,200), "
+          "(24,40,56), nl 1-3: equal to plain")
+    t3 = check_flag0(v, 3, q, timed=True)
+    report("hybrid_fwd", 0.0, t3[0], t3[1])
+    report("hybrid_inv", 0.0, t3[2], t3[3])
+    x2 = torch.linspace(0.0, 1.0, 8192, device=dev)
+    v2d = torch.sin(6 * np.pi * x2[:, None]) * torch.cos(5 * np.pi * x2[None])
+    t2 = check_flag0(v2d, 3, q, timed=True)
+    phase(f"phase 3 K7/K8 at 8192^2: equal to plain; K7 {t2[0]:.4f} ms "
+          f"(plain {t2[1]:.4f}), K8 {t2[2]:.4f} ms (plain {t2[3]:.4f})")
+    del v2d
+    torch.cuda.empty_cache()
+
+    # K5/K6, the BFX codec: words, widths and total equal to the plain merge
+    # tree's; symbols back equal to the split tree's and to the input
+    def check_bfx(sym, sb, align, timed):
+        ko = X.encode_core(sym, sb, align)
+        po = X.encode_core_plain(sym, sb, align)
+        T = int(ko[2])
+        if T != int(po[2]) or not torch.equal(ko[1], po[1]) or \
+                not torch.equal(ko[0][:T], po[0][:T]):
+            raise AssertionError(f"K5 differs from plain: n={sym.numel()} "
+                                 f"sb={sb} align={align}")
+        words, widths = ko[0][:T], ko[1]
+        del po
+        dk = X.decode_core(words, widths, sb, align)
+        dp = X.decode_core_plain(words, widths, sb, align)
+        if not (torch.equal(dk, dp) and torch.equal(dk, sym)):
+            raise AssertionError(f"K6 differs: n={sym.numel()} sb={sb}")
+        del dp
+        if not timed:
+            return T, None
+        return T, (time_ms(lambda: X.encode_core(sym, sb, align)),
+                   time_ms(lambda: X.encode_core_plain(sym, sb, align), 1),
+                   time_ms(lambda: X.decode_core(words, widths, sb, align)),
+                   time_ms(lambda: X.decode_core_plain(words, widths, sb,
+                                                        align), 1))
+
+    for n, sb, align, wide in ((256 * 32 * 4, 256, 1, False),
+                               (256 * 32 * 2, 256, 1, True),
+                               (4096 * 32 * 2, 4096, 1024, True)):
+        sm = torch.from_numpy(mixed_symbols(n, gen, wide)).to(dev)
+        check_bfx(sm, sb, align, timed=False)
+        if sb == X.SB_BLOCKS_SMALL:  # the bytes API picks this geometry
+            blob_d = X.encode(sm)
+            if blob_d != X.encode(sm.cpu()) or \
+                    not torch.equal(X.decode(blob_d, 0, dev)[0], sm):
+                raise AssertionError("BFX blob written on the card differs "
+                                     "from the CPU's")
+    phase("phase 3 small K5/K6: mixed widths at sb=256/align=1, 32-bit-wide "
+          "blocks at sb=256/align=1 and sb=4096/align=1024: words and "
+          "symbols equal to plain; card and CPU blobs equal at sb=256")
+    sym = HL._compress_core_hybrid(v, q, padded, 3, rem_hier, True)
+    sb = X._choose_sb(sym.numel(), dev)
+    if sb != X.SB_BLOCKS or sym.numel() % (sb * 32):
+        raise AssertionError(f"512^3 BFX stream: sb={sb}, n={sym.numel()}")
+    T, t5 = check_bfx(sym, sb, X.ALIGN, timed=True)
+    report("bfx_encode", 0.0, t5[0], t5[1])
+    report("bfx_decode", 0.0, t5[2], t5[3])
+    phase(f"phase 3 K5/K6 on the 512^3 Hybrid+BFX stream: "
+          f"{sym.numel()} symbols, sb={sb}, align={X.ALIGN}, {T} words")
+    del sym
+    torch.cuda.empty_cache()
+
     # -- 4. the main path ------------------------------------------------
     nbytes = v.numel() * 4
     B._K_CACHE.clear()
@@ -288,7 +423,7 @@ def main():
         out, st2 = M.decompress(blob, device=dev)
         torch.cuda.synchronize()
         times.append((t1 - t0, time.perf_counter() - t1))
-    launches = dict(kernels.LAUNCHES)
+    launches_main = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     if st != M.compress_status_type.Success or \
             st2 != M.compress_status_type.Success:
@@ -298,10 +433,10 @@ def main():
     flag = blob[Metadata.deserialize(blob)[1] + 8 + len(HL._EMPTY_OUTLIERS)]
     if flag != 1:
         raise AssertionError(f"main path wrote flag {flag}, expected 1")
-    missing = [k for k in REPO_KERNELS if launches[k] < 1]
+    missing = [k for k in MAIN_PATH if launches_main[k] < 1]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing} ({launches})")
+                             f"{missing} ({launches_main})")
     err = float((out - v).abs().max())
     if not (torch.isfinite(out).all() and tuple(out.shape) == tuple(v.shape)
             and err <= TOL):
@@ -313,11 +448,78 @@ def main():
           f"{tc * 1e3:.1f} ms ({nbytes / tc / 1e9:.3f} GB/s), decompress "
           f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [best of 3; "
           f"first {times[0][0] * 1e3:.1f} / {times[0][1] * 1e3:.1f} ms]; "
-          f"peak device memory {peak / 2**30:.3f} GiB; launches {launches}")
-    del out, v
+          f"peak device memory {peak / 2**30:.3f} GiB; launches "
+          f"{launches_main}")
+    del out
+
+    # -- 5. Hybrid+BFX ---------------------------------------------------
+    bcfg = M.Config()
+    bcfg.lossless = M.lossless_type.BFX
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    times = []
+    for _rep in range(3):
+        t0 = time.perf_counter()
+        blob, st = M.compress(v, TOL, s=math.inf, mode=M.error_bound_type.ABS,
+                              config=bcfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, st2 = M.decompress(blob, device=dev)
+        torch.cuda.synchronize()
+        times.append((t1 - t0, time.perf_counter() - t1))
+    launches_bfx = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if st != M.compress_status_type.Success or \
+            st2 != M.compress_status_type.Success:
+        raise AssertionError(f"Hybrid+BFX status {st} / {st2}")
+    head = section_head(blob)
+    if head != (0, int(M.lossless_type.BFX), (X.SB_BLOCKS, X.ALIGN)):
+        raise AssertionError(f"Hybrid+BFX stream: (flag, backend, geometry) "
+                             f"{head}")
+    missing = [k for k in BFX_PATH if launches_bfx[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on Hybrid+BFX: {missing} "
+                             f"({launches_bfx})")
+    err = float((out - v).abs().max())
+    if not (torch.isfinite(out).all() and tuple(out.shape) == tuple(v.shape)
+            and err <= TOL):
+        raise AssertionError(f"Hybrid+BFX: L-inf {err} > {TOL} or bad output")
+    tc = min(t[0] for t in times)
+    td = min(t[1] for t in times)
+    phase(f"phase 5 Hybrid+BFX {N_MAIN}^3 f32 tol={TOL}: flag 0, one BFX "
+          f"section (sb={X.SB_BLOCKS}, align={X.ALIGN}), ratio "
+          f"{nbytes / len(blob):.4f}, L-inf {err:.3e}; compress "
+          f"{tc * 1e3:.1f} ms ({nbytes / tc / 1e9:.3f} GB/s), decompress "
+          f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [best of 3; "
+          f"first {times[0][0] * 1e3:.1f} / {times[0][1] * 1e3:.1f} ms]; "
+          f"peak device memory {peak / 2**30:.3f} GiB; launches "
+          f"{launches_bfx}")
+    del out, v, blob
     torch.cuda.empty_cache()
 
-    # -- 5. a card-written stream decoded on the CPU ---------------------
+    # -- 6. the main path at 128^3: its remainder rides BFX --------------
+    v128 = bench_field(128, dev)
+    kernels.reset_launches()
+    blob, st = M.compress(v128, TOL)
+    out, st2 = M.decompress(blob, device=dev)
+    torch.cuda.synchronize()
+    launches_small = dict(kernels.LAUNCHES)
+    head = section_head(blob)
+    err = float((out - v128).abs().max())
+    missing = [k for k in SMALL_MAIN_PATH if launches_small[k] < 1]
+    if st or st2 or head[:2] != (1, int(M.lossless_type.BFX)) or \
+            not err <= TOL or missing:
+        raise AssertionError(f"128^3 main path: status {st}/{st2}, (flag, "
+                             f"backend, geometry) {head}, L-inf {err}, not "
+                             f"launched {missing}")
+    phase(f"phase 6 main path 128^3: flag 1, remainder section BFX "
+          f"{head[2]}, ratio {v128.numel() * 4 / len(blob):.4f}, L-inf "
+          f"{err:.3e}; launches {launches_small}")
+    del v128, out
+
+    # -- 7. streams across devices ---------------------------------------
     v2 = bench_field(N_CROSS, dev)
     blob2, st = M.compress(v2, TOL)
     out_gpu, st_g = M.decompress(blob2, device=dev)
@@ -333,7 +535,7 @@ def main():
     if not (e_cpu <= TOL and e_gpu <= TOL and d <= 1e-5):
         raise AssertionError(f"cross-device: cpu {e_cpu}, gpu {e_gpu}, "
                              f"diff {d}")
-    phase(f"phase 5 {N_CROSS}^3 card-written stream: CPU decode L-inf "
+    phase(f"phase 7 {N_CROSS}^3 card-written stream: CPU decode L-inf "
           f"{e_cpu:.3e}, card decode {e_gpu:.3e}, CPU vs card {d:.3e} "
           f"(bound 1e-5)")
     # the flag-0 fallback on the card: a pinned K with K+E > 16 leaves the
@@ -351,12 +553,35 @@ def main():
     if not (e0 <= TOL and d0 <= 1e-5):
         raise AssertionError(f"flag-0 on the card: L-inf {e0}, CPU vs card "
                              f"{d0}")
-    phase(f"phase 5 {N_CROSS}^3 flag-0 fallback (K=9, E=8): card decode "
+    phase(f"phase 7 {N_CROSS}^3 flag-0 fallback (K=9, E=8): card decode "
           f"L-inf {e0:.3e}, CPU vs card {d0:.3e}")
+    # Hybrid+BFX both ways: the card writes sb=4096/align=1024, the CPU
+    # sb=256/align=1; each decodes on both devices
+    for writer, src in (("card", v2), ("CPU", ref)):
+        blob_b, st = M.compress(src, TOL, config=bcfg)
+        geom = (X.SB_BLOCKS, X.ALIGN) if writer == "card" else \
+            (X.SB_BLOCKS_SMALL, 1)
+        head = section_head(blob_b)
+        if st or head != (0, int(M.lossless_type.BFX), geom):
+            raise AssertionError(f"{writer}-written Hybrid+BFX: status {st},"
+                                 f" (flag, backend, geometry) {head}")
+        ob_g, sg = M.decompress(blob_b, device=dev)
+        ob_c, sc = M.decompress(blob_b, device="cpu")
+        eb_g = float((ob_g.cpu() - ref).abs().max())
+        eb_c = float((ob_c - ref).abs().max())
+        db = float((ob_c - ob_g.cpu()).abs().max())
+        if sg or sc or not (eb_g <= TOL and eb_c <= TOL and db <= 1e-5):
+            raise AssertionError(f"{writer}-written Hybrid+BFX: card L-inf "
+                                 f"{eb_g}, CPU {eb_c}, diff {db}")
+        phase(f"phase 7 {N_CROSS}^3 Hybrid+BFX written on the {writer} "
+              f"(sb, align)={geom}: card decode L-inf {eb_g:.3e}, CPU decode "
+              f"{eb_c:.3e}, CPU vs card {db:.3e}")
 
+    path_launches = {**{k: launches_main[k] for k in MAIN_PATH},
+                     **{k: launches_bfx[k] for k in BFX_PATH}}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=launches[k], **rows[k])
+             launches=path_launches[k], **rows[k])
         for k, (src, rep) in REPO_KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@
 // loads and stores run along z; the u16 payload is stored in grouped order
 // in runs of 8 (one run per z class and tile).
 #include "common.cuh"
+#include "local8.cuh"
 
 namespace {
 
@@ -28,47 +29,6 @@ constexpr int ZT = 64;              // z extent of a tile: 8 whole 8-blocks
 constexpr int TILE = 8 * 8 * ZT;    // elements per tile
 constexpr int NT = 256;             // threads per block
 constexpr int MAX_H = 32;           // chunk rows per (x, y) row (Z <= 1024)
-
-// In-block position chains 8 -> 5 -> 3 -> 2 as bit masks over {0..7}:
-// {0..7}, {0,2,4,6,7}, {0,4,7}, {0,7}.
-__device__ __forceinline__ unsigned chain_mask(int l) {
-  return l == 0 ? 0xFFu : l == 1 ? 0xD5u : l == 2 ? 0x91u : 0x81u;
-}
-
-__device__ __forceinline__ bool in_chain(int l, int p) {
-  return (chain_mask(l) >> p) & 1u;
-}
-
-// Level-lvl coefficient positions: fine on the level's chain, not coarse.
-__device__ __forceinline__ bool is_fine(int lvl, int p) {
-  return ((chain_mask(lvl) & ~chain_mask(lvl + 1)) >> p) & 1u;
-}
-
-// The lerp rule of a level-lvl coefficient position p: coarse neighbours
-// (lp, rp) and float32 weights rounded from double exactly as the plain
-// version rounds them (t = (p - lp) / (rp - lp)).
-__device__ __forceinline__ void lerp_rule(int lvl, int p, int& lp, int& rp,
-                                          float& wl, float& wr) {
-  if (lvl == 0) {  // p in {1, 3, 5}
-    lp = p - 1; rp = p + 1; wl = 0.5f; wr = 0.5f;
-  } else if (lvl == 1) {
-    if (p == 2) { lp = 0; rp = 4; wl = 0.5f; wr = 0.5f; }
-    else { lp = 4; rp = 7; wl = (float)(1.0 - 2.0 / 3.0); wr = (float)(2.0 / 3.0); }
-  } else {  // p == 4
-    lp = 0; rp = 7; wl = (float)(1.0 - 4.0 / 7.0); wr = (float)(4.0 / 7.0);
-  }
-}
-
-// Level-lvl 3D coefficient: in the level grid on every axis, fine on one.
-__device__ __forceinline__ bool coeff3(int lvl, int px, int py, int pz) {
-  return in_chain(lvl, px) && in_chain(lvl, py) && in_chain(lvl, pz) &&
-         (is_fine(lvl, px) || is_fine(lvl, py) || is_fine(lvl, pz));
-}
-
-// Index of corner position p among the remainder columns of chain nl.
-__device__ __forceinline__ int rem_col(int nl, int p) {
-  return __popc(chain_mask(nl) & ((1u << p) - 1u));
-}
 
 // One level-axis interpolation pass over the tile, in place: it writes only
 // the level's coefficient positions along `axis` and reads only coarse

@@ -1,21 +1,28 @@
 """High-level API of the PyTorch port: ``compress`` / ``decompress``.
 
-Port of the main path of ``mgard_tpu/highlevel.py``: a float32 field at
-s=inf under an ABS or REL tolerance, Hybrid decomposition (8^3 local levels
-plus the multilevel transform of the corner remainder) and the BFP lossless
-stage. It writes the same self-describing streams as the JAX package, so
-either package decodes what the other wrote:
+Port of the Hybrid paths of ``mgard_tpu/highlevel.py``: a float32 field at
+s=inf under an ABS or REL tolerance, Hybrid decomposition (8^D local levels
+plus the multilevel transform of the corner remainder) and the BFP or BFX
+lossless stage. It writes the same self-describing streams as the JAX
+package, so either package decodes what the other wrote:
 
-- flag 1 ("v2"): the cf stream as a prepared BFP5 blob (kernels K1 and K2),
-  then the remainder as a BFP lossless section (K2); decode runs K3 and K4;
-- flag 0: one BFP section of all symbols, the fallback when a chunk needs
-  more than 16 bits or the shape fails the flag-1 gate.
+- flag 1 ("v2", lossless=BFP, 3D): the cf stream as a prepared BFP5 blob
+  (kernels K1 and K2), then the remainder as a lossless section; decode
+  runs K3 and K4;
+- flag 0: one lossless section of all symbols (kernels K7 and K8 for the
+  front end of a 2D or 3D field): the path of lossless=BFX, and the
+  fallback when a chunk needs more than 16 bits or the shape fails the
+  flag-1 gate.
+
+A lossless section of fewer than ``bfp.SB_PALLAS_MIN * 32`` symbols is BFX
+(kernels K5 and K6) whatever the backend asked for, as in the JAX package;
+the section's backend id keeps the stream self-describing.
 
 The JAX package writes flag 1 only on a TPU; the port writes it on every
 device, so its CPU path and its CUDA path produce the same format. A tensor
 runs on the device it lives on; a NumPy input goes to ``device`` (default
-CPU). Requests outside this slice raise NotImplementedError naming the
-ROADMAP item that brings them.
+CPU). Requests outside the ported paths raise NotImplementedError naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -163,16 +170,15 @@ def _decompress_core_hybrid_v2(zz_rows, rem_sym, q: float, shape, padded,
 def _compress_core_hybrid(v, q: float, padded, nl: int, rem_hier,
                           zgroup: bool):
     """Flag-0 symbols: the cf field (z-class grouped when zgroup) followed
-    by the quantized remainder transform. Plain torch on every device: the
-    fused TPU front end of this path (K7) is ROADMAP queue 2."""
-    v = _edge_pad(v, padded)
+    by the quantized remainder transform. A 2D or 3D field takes K7 (a
+    CUDA tensor launches it); other ranks run the plain version on every
+    device, as the JAX package runs XLA for them."""
+    v = _edge_pad(v, padded).contiguous()
     inv_q = _inv_q(q)
-    dec = Hy.local_decompose(v, nl)
-    rem = Hy.extract_remainder(dec, nl)
-    zero = torch.zeros((), dtype=dec.dtype, device=dec.device)
-    cf = torch.where(Hy.corner_mask(dec.shape, nl, dec.device), zero, dec)
+    front = (Hy.local_transform_fused if v.ndim in (2, 3)
+             else Hy.local_transform)
+    cf_sym, rem = front(v, inv_q, nl)
     rem_dec = decompose(rem, rem_hier, orthogonal=False)
-    cf_sym = Hy.quantize(cf, inv_q)
     if zgroup:
         cf_sym = Hy.zclass_group(cf_sym)
     return torch.cat([cf_sym.reshape(-1),
@@ -188,8 +194,9 @@ def _decompress_core_hybrid(sym, q: float, shape, padded, nl: int, rem_hier,
     cf_sym = sym[:n_cf].reshape(padded)
     if zgroup:
         cf_sym = Hy.zclass_ungroup(cf_sym)
-    cf = cf_sym.to(torch.float32) * q
-    out = Hy.local_recompose(Hy.insert_remainder(cf, rem, nl), nl)
+    back = (Hy.local_inverse_fused if len(padded) in (2, 3)
+            else Hy.local_inverse)
+    out = back(cf_sym.contiguous(), rem.contiguous(), q, nl)
     return out[tuple(slice(0, s) for s in shape)]
 
 
@@ -209,15 +216,16 @@ _EMPTY_OUTLIERS = struct.pack("<QQQ", 0, len(_Z0), len(_Z0)) + _Z0 + _Z0
 
 
 def _raw_encode_device(sym, config: Config):
-    """Returns (effective lossless id, BFP device state)."""
+    """Returns (effective lossless id, the codec's device state)."""
     lt = _effective_raw_lt(config.lossless, int(sym.shape[0]))
     if lt == lossless_type.BFX:
-        _bfx.encode(sym, config)  # raises until the BFX codec is ported
+        return lt, _bfx.encode_device(sym, config.bfx_sb_blocks)
     return lt, _bfp.encode_device(sym, config)
 
 
 def _raw_section_parts(lt_eff, dev_state) -> list:
-    return section_parts(lt_eff, _bfp.serialize_device_parts(dev_state))
+    codec = _bfx if lt_eff == lossless_type.BFX else _bfp
+    return section_parts(lt_eff, codec.serialize_device_parts(dev_state))
 
 
 def _dispatch_subdomain(v, hier, config: Config, abs_tol: float):
@@ -317,9 +325,9 @@ def _check_slice(s: float, config: Config, dtype) -> None:
     if config.decomposition != decomposition_type.Hybrid:
         _todo(f"{config.decomposition.name} decomposition",
               "ROADMAP queue 1 item 9")
-    if config.lossless != lossless_type.BFP:
+    if config.lossless not in (lossless_type.BFP, lossless_type.BFX):
         _todo(f"lossless backend {config.lossless.name}",
-              "ROADMAP queue 1 items 8 and 11")
+              "ROADMAP queue 1 item 11")
     if config.adjust_shape:
         _todo("shape adjustment on compress", "ROADMAP queue 1 item 9")
     if config.hybrid_fused_pack:

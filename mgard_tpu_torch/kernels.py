@@ -1,16 +1,17 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``csrc/`` are compiled at first use by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-ctypes (no PyTorch headers, so a build takes seconds). The library goes to
-``build/kernels/`` at the root of the checkout, named by a hash of the
-sources and flags, so a changed source builds anew and an unchanged one is
-reused.
+(``sm_90a``), one process per source, all started together, and linked into
+one shared library with a plain C interface, loaded with ctypes (no PyTorch
+headers, so a build takes seconds). The library goes to ``build/kernels/``
+at the root of the checkout, named by a hash of the sources and flags, so a
+changed source builds anew and an unchanged one is reused.
 
-Each C entry point launches one kernel on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises on a nonzero code and only then
-counts the launch in ``LAUNCHES``. Nothing here runs on import, and nothing
-falls back: a CUDA tensor either reaches its kernel or raises.
+Each C entry point launches its kernel (for K5/K6 a short chain of kernels)
+on the stream it is given and returns ``cudaGetLastError()``; ``launch``
+raises on a nonzero code and only then counts the launch in ``LAUNCHES``.
+Nothing here runs on import, and nothing falls back: a CUDA tensor either
+reaches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,8 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # -fmad=false: the plain versions compute a*b + c as two rounded IEEE
 # operations; contracting them into an fma would change the low bits.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v"]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
@@ -45,6 +45,14 @@ _SIGNATURES = {
     # E, stream
     "bfp_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
                    _P],
+    # sym, widths, boff, slen, offs, out, NB, sb, align, stream
+    "bfx_encode": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # words, widths, boff, slen, offs, sym, NB, sb, align, stream
+    "bfx_decode": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # v, inv_q, sym, rem, X, Y, Z, nl, stream
+    "hybrid_fwd": [_P, _F, _P, _P, _I, _I, _I, _I, _P],
+    # sym, rem, q, out, X, Y, Z, nl, stream
+    "hybrid_inv": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
 }
 
 # Launch counts per kernel, bumped only where a kernel was launched.
@@ -88,21 +96,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it exists."""
+    """Compile csrc/*.cu into the shared library unless it exists: one nvcc
+    per source, run in parallel, then one link."""
     global BUILD_LOG
     out = library_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
     cus, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-           *map(str, cus)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, out)
+    objs = [tmp.with_name(f"{tmp.name}.{cu.stem}.o") for cu in cus]
+    logs = [o.with_suffix(".log") for o in objs]
+    try:
+        procs = []
+        for cu, obj, log in zip(cus, objs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o",
+                     str(obj), str(cu)], stdout=f, stderr=subprocess.STDOUT))
+        codes = [p.wait() for p in procs]
+        BUILD_LOG = "".join(log.read_text() for log in logs)
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({codes}):\n{BUILD_LOG}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        BUILD_LOG += res.stdout + res.stderr
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{BUILD_LOG}")
+        os.replace(tmp, out)
+    finally:
+        for path in objs + logs + [tmp]:
+            path.unlink(missing_ok=True)
     return out
 
 

@@ -1,7 +1,7 @@
 """Lossless section framing: ``<BQ`` (backend id, inner payload size)
 followed by the backend's blob (port of ``mgard_tpu/lossless/registry.py``
-for the BFP backend; BFX is ROADMAP queue 1 item 8, the other backends
-item 11)."""
+for the BFP and BFX backends; the others, the zstd second stage included,
+are ROADMAP queue 1 item 11)."""
 
 from __future__ import annotations
 
@@ -28,11 +28,10 @@ def lossless_decompress(data: bytes, offset: int = 0, device="cpu"):
     if p + inner_size > len(data):
         raise ValueError("truncated lossless payload")
     consumed = struct.calcsize(_HDR) + inner_size
-    if lt == lossless_type.BFP:
-        syms, _ = bfp.decode(data, p, device)
-        return syms, consumed
-    if lt in (lossless_type.BFX, lossless_type.BFX_Zstd):
-        bfx.decode(data, p, device)
-    raise NotImplementedError(
-        f"lossless backend {lt.name} is not ported yet (ROADMAP queue 1 "
-        "item 11)")
+    codec = {lossless_type.BFP: bfp, lossless_type.BFX: bfx}.get(lt)
+    if codec is None:
+        raise NotImplementedError(
+            f"lossless backend {lt.name} is not ported yet (ROADMAP queue 1 "
+            "item 11)")
+    syms, _ = codec.decode(data, p, device)
+    return syms, consumed

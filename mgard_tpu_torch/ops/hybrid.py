@@ -13,9 +13,11 @@ multiply-multiply-add per coefficient position. They compute ``wl*a + wr*b``
 and ``v - w`` as separate IEEE float32 operations, exactly as the CUDA
 kernels do, so kernel and plain version agree bit for bit on the card.
 
-Two CUDA kernels carry the flag-1 ("v2") front end on the GPU:
+Four CUDA kernels carry the front end on the GPU: the flag-1 ("v2") pair
 ``local_transform_fused_v2`` (K1, csrc/hybrid_v2.cu) and
-``local_inverse_fused_v2`` (K4). Each wrapper takes the plain version for a
+``local_inverse_fused_v2`` (K4), and the flag-0 pair
+``local_transform_fused`` (K7, csrc/hybrid.cu) and ``local_inverse_fused``
+(K8) for 2D and 3D fields. Each wrapper takes the plain version for a
 tensor on the CPU and launches its kernel for a tensor on a CUDA device.
 
 u16 payloads are carried as ``torch.int16`` tensors holding the u16 bit
@@ -253,11 +255,7 @@ def local_transform_v2(v, inv_q: float, nl: int, C: int):
     float32 [corner values])."""
     Z = v.shape[-1]
     CL = C * 32
-    dec = local_decompose(v, nl)
-    rem = extract_remainder(dec, nl)
-    zero = torch.zeros((), dtype=dec.dtype, device=dec.device)
-    cf = torch.where(corner_mask(dec.shape, nl, dec.device), zero, dec)
-    sym = quantize(cf, inv_q)
+    sym, rem = local_transform(v, inv_q, nl)
     zz = (sym << 1) ^ (sym >> 31)
     grouped = zclass_group(zz)
     g3 = grouped.reshape(v.shape[:-1] + (Z // CL, CL))
@@ -272,9 +270,7 @@ def local_inverse_v2(pay, rem, q: float, nl: int):
     """Plain version of K4: int16 (u16 bits) grouped zigzag payload +
     compact remainder -> float32 field."""
     nat = zclass_ungroup(pay.to(torch.int32) & 0xFFFF)
-    sym = (nat >> 1) ^ -(nat & 1)
-    cf = sym.to(torch.float32) * q
-    return local_recompose(insert_remainder(cf, rem, nl), nl)
+    return local_inverse((nat >> 1) ^ -(nat & 1), rem, q, nl)
 
 
 def _v2_geometry(shape, nl: int):
@@ -324,6 +320,102 @@ def local_inverse_fused_v2(pay, rem, q: float, nl: int):
     kernels.launch("hybrid_inv_v2", pay.data_ptr(), rem.data_ptr(),
                    float(np.float32(q)), out.data_ptr(), X, Y, Z, nl,
                    kernels.stream(pay.device))
+    return out
+
+
+# ----------------------------------------------------------------------
+# The flag-0 front end: plain versions and kernel wrappers
+# ----------------------------------------------------------------------
+def _tile_shape(shape):
+    """The JAX package's gate of its fused flag-0 kernels (a VMEM tile:
+    2D/3D, every axis a multiple of 8, the minor axis a multiple of 128
+    within the tile budget), kept so both packages agree on which shapes
+    the TPU fuses. On the GPU every 2D/3D shape whose axes are multiples of
+    8 takes K7/K8; this gate does not route the port."""
+    D = len(shape)
+    if D > 3 or D < 2 or any(s % 8 for s in shape) or shape[-1] % 128:
+        return None
+    budget = 1 << 19
+    t = [8] * D
+    t[-1] = shape[-1]
+    if int(np.prod(t)) > budget:
+        return None
+    d = D - 2
+    size = shape[d]
+    best = 8
+    cand = 8
+    while cand <= size:
+        if size % cand == 0 and int(np.prod(t[:d])) * cand * t[-1] <= budget:
+            best = cand
+        cand *= 2
+    t[d] = best
+    if any(s % ts for s, ts in zip(shape, t)):
+        return None
+    return tuple(t)
+
+
+def local_transform(v, inv_q: float, nl: int):
+    """Plain version of K7: local decompose + corner split + quantize.
+    Returns (sym int32 of v's shape [natural order, 0 at the corners],
+    rem float32 (n/8*k per axis) [corner values]). Any rank."""
+    dec = local_decompose(v, nl)
+    rem = extract_remainder(dec, nl)
+    zero = torch.zeros((), dtype=dec.dtype, device=dec.device)
+    cf = torch.where(corner_mask(dec.shape, nl, dec.device), zero, dec)
+    return quantize(cf, inv_q), rem
+
+
+def local_inverse(sym, rem, q: float, nl: int):
+    """Plain version of K8: dequantize + corner insert + local recompose.
+    Any rank."""
+    cf = sym.to(torch.float32) * q
+    return local_recompose(insert_remainder(cf, rem, nl), nl)
+
+
+def _fused_geometry(shape, nl: int):
+    if len(shape) not in (2, 3) or any(s < 8 or s % 8 for s in shape):
+        raise ValueError(f"shape {tuple(shape)}: the flag-0 kernels take 2D "
+                         "and 3D fields with every axis a multiple of 8")
+    if nl not in (1, 2, 3):
+        raise ValueError(f"num_levels must be 1..3, got {nl}")
+    X, Y, Z = (1,) + tuple(shape) if len(shape) == 2 else tuple(shape)
+    return (X, Y, Z), remainder_shape(shape, nl)
+
+
+def local_transform_fused(v, inv_q: float, nl: int):
+    """K7 wrapper (replaces mgard_tpu/ops/hybrid.py local_transform_fused):
+    same outputs as local_transform, for 2D and 3D float32 fields with
+    every axis a multiple of 8. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel."""
+    (X, Y, Z), rem_shape = _fused_geometry(v.shape, nl)
+    kernels.check_tensor("v", v, torch.float32, v.shape, v.device)
+    if v.device.type == "cpu":
+        return local_transform(v, inv_q, nl)
+    if v.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v.device}")
+    sym = torch.empty(v.shape, dtype=torch.int32, device=v.device)
+    rem = torch.empty(rem_shape, dtype=torch.float32, device=v.device)
+    kernels.launch("hybrid_fwd", v.data_ptr(), float(np.float32(inv_q)),
+                   sym.data_ptr(), rem.data_ptr(), X, Y, Z, nl,
+                   kernels.stream(v.device))
+    return sym, rem
+
+
+def local_inverse_fused(sym, rem, q: float, nl: int):
+    """K8 wrapper (replaces mgard_tpu/ops/hybrid.py local_inverse_fused):
+    same output as local_inverse, for 2D and 3D fields. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel."""
+    (X, Y, Z), rem_shape = _fused_geometry(sym.shape, nl)
+    kernels.check_tensor("sym", sym, torch.int32, sym.shape, sym.device)
+    kernels.check_tensor("rem", rem, torch.float32, rem_shape, sym.device)
+    if sym.device.type == "cpu":
+        return local_inverse(sym, rem, q, nl)
+    if sym.device.type != "cuda":
+        raise ValueError(f"no kernel for device {sym.device}")
+    out = torch.empty(sym.shape, dtype=torch.float32, device=sym.device)
+    kernels.launch("hybrid_inv", sym.data_ptr(), rem.data_ptr(),
+                   float(np.float32(q)), out.data_ptr(), X, Y, Z, nl,
+                   kernels.stream(sym.device))
     return out
 
 

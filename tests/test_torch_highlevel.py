@@ -3,10 +3,12 @@ API on the CPU, and streams that cross-decode both ways with the JAX
 package within the tolerance.
 
 (64, 64, 128) is the smallest shape with one full v2 superblock (16384
-blocks of 32 symbols). Its remainder has 8192 symbols; both packages get
-``bfp.SB_PALLAS_MIN = 256`` so that stream rides BFP and not the BFX codec,
-which the port does not have yet."""
+blocks of 32 symbols). Its remainder has 8192 symbols, which ride BFX at
+the production threshold; the ``bfp_small`` fixture gives both packages
+``bfp.SB_PALLAS_MIN = 256`` so that the flag-1 tests below also cover a BFP
+remainder section. The BFX tests run at the production threshold."""
 
+import dataclasses
 import struct
 
 import numpy as np
@@ -20,6 +22,7 @@ from mgard_tpu.lossless import bfp as JB
 from mgard_tpu.ops import hybrid as JH
 from mgard_tpu_torch import highlevel as THL
 from mgard_tpu_torch.formats.metadata import Metadata
+from mgard_tpu_torch.interop import config_from_jax
 from mgard_tpu_torch.lossless import bfp as TB
 
 SHAPE = (64, 64, 128)
@@ -43,6 +46,14 @@ def bfp_small(monkeypatch):
     caches start empty."""
     for mod in (JB, TB):
         monkeypatch.setattr(mod, "SB_PALLAS_MIN", 256)
+        monkeypatch.setattr(mod, "_K_CACHE", {})
+    return monkeypatch
+
+
+@pytest.fixture
+def fresh_k_caches(monkeypatch):
+    """Sticky K caches start empty; the thresholds stay as shipped."""
+    for mod in (JB, TB):
         monkeypatch.setattr(mod, "_K_CACHE", {})
     return monkeypatch
 
@@ -153,24 +164,91 @@ def test_tensor_input_stays_on_its_device(bfp_small):
         M.compress(torch.from_numpy(v), 1e-3, device="meta")
 
 
-def test_bfx_section_and_flag2_raise_clearly(bfp_small):
+def _raw_backend(blob):
+    """Backend id of the first subdomain's lossless section (the remainder
+    section of a flag-1 stream)."""
+    _m, off = Metadata.deserialize(blob)
+    pos = off + 8 + len(THL._EMPTY_OUTLIERS)
+    flag = blob[pos]
+    pos += 1
+    if flag == 1:
+        (cf_len,) = struct.unpack_from("<Q", blob, pos)
+        pos += 8 + cf_len
+    return blob[pos]
+
+
+def test_bfx_section_and_flag2_raise_clearly(fresh_k_caches):
+    """The default main path at (64, 64, 128) and the production threshold:
+    the 8192-symbol remainder rides a BFX section. Each package decodes the
+    other's flag-1 stream; a flag-2 stream still raises clearly."""
     v = _field(SHAPE)
-    blob, _ = M.compress(v, 1e-3)
+    tol = 1e-3
+    blob, st = M.compress(v, tol)
+    assert st == 0 and _flag(blob) == 1
+    assert _raw_backend(blob) == M.lossless_type.BFX
+    assert blob.count(b"BFP5") == 1 and blob.count(b"BFX2") == 1
+    out, st2 = M.decompress(blob)
+    assert st2 == 0 and _err(out, v) <= tol
+    outj, stj = mgard_tpu.decompress(blob)
+    assert int(stj) == 0 and _err(outj, v) <= tol
+    _jax_flag1(fresh_k_caches)
+    jblob, st = mgard_tpu.compress(v, tol=tol)
+    assert int(st) == 0 and _flag(jblob) == 1
+    assert _raw_backend(jblob) == M.lossless_type.BFX
+    out, st3 = M.decompress(jblob)
+    assert st3 == 0 and _err(out, v) <= tol
     bad = bytearray(blob)
     _m, off = Metadata.deserialize(blob)
     bad[off + 8 + len(THL._EMPTY_OUTLIERS)] = 2
     with pytest.raises(NotImplementedError, match="flag-2"):
         M.decompress(bytes(bad))
-    # at the production threshold the 8192-symbol remainder needs BFX
-    bfp_small.setattr(TB, "SB_PALLAS_MIN", 8192)
-    bfp_small.setattr(JB, "SB_PALLAS_MIN", 8192)
-    with pytest.raises(NotImplementedError, match="BFX"):
-        M.compress(v, 1e-3)
-    _jax_flag1(bfp_small)
-    jblob, st = mgard_tpu.compress(v, tol=1e-3)
-    assert int(st) == 0
-    with pytest.raises(NotImplementedError, match="BFX"):
-        M.decompress(jblob)
+
+
+def _bfx_config():
+    jcfg = mgard_tpu.Config()
+    jcfg.lossless = mgard_tpu.lossless_type.BFX
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    assert cfg.lossless == M.lossless_type.BFX
+    assert cfg.bfx_sb_blocks == jcfg.bfx_sb_blocks
+    return jcfg, cfg
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (512, 512)])
+def test_bfx_backend_streams_cross_decode(fresh_k_caches, shape):
+    """lossless=BFX: a flag-0 stream of one BFX section (K7 and K5 on a
+    CUDA tensor). Each package decodes the other's stream within tol; a
+    JAX Config carried across gives the same header bytes."""
+    v = _field(shape) if len(shape) == 3 else _field(shape + (1,))[..., 0]
+    tol = 1e-3
+    jcfg, cfg = _bfx_config()
+    blob, st = M.compress(v, tol, config=cfg)
+    assert st == 0 and _flag(blob) == 0
+    assert _raw_backend(blob) == M.lossless_type.BFX
+    out, st2 = M.decompress(blob)
+    assert st2 == 0 and tuple(out.shape) == shape and _err(out, v) <= tol
+    outj, stj = mgard_tpu.decompress(blob)
+    assert int(stj) == 0 and _err(outj, v) <= tol
+    jblob, st3 = mgard_tpu.compress(v, tol=tol, config=jcfg)
+    assert int(st3) == 0 and _flag(jblob) == 0
+    out, st4 = M.decompress(jblob)
+    assert st4 == 0 and _err(out, v) <= tol
+    hj = Metadata.deserialize(jblob)[1]
+    assert blob[:hj] == jblob[:hj]
+
+
+def test_bfx_stream_of_a_4d_field_decodes_in_both_packages(fresh_k_caches):
+    """A 4D field takes the flag-0 plain versions on every device (the JAX
+    package runs no Pallas kernel for it either)."""
+    shape = (8, 8, 64, 64)
+    v = _field((8, 1, 8 * 64 * 64)).reshape(shape)
+    tol = 1e-3
+    blob, st = M.compress(v, tol, config=_bfx_config()[1])
+    assert st == 0 and _flag(blob) == 0
+    assert _raw_backend(blob) == M.lossless_type.BFX
+    out, st2 = M.decompress(blob)
+    assert st2 == 0 and tuple(out.shape) == shape and _err(out, v) <= tol
+    outj, stj = mgard_tpu.decompress(blob)
+    assert int(stj) == 0 and _err(outj, v) <= tol
 
 
 def test_status_codes():

@@ -15,6 +15,7 @@ import torch
 
 from mgard_tpu_torch import kernels
 from mgard_tpu_torch.lossless import bfp as TB
+from mgard_tpu_torch.lossless import bfx as TX
 from mgard_tpu_torch.ops import hybrid as TH
 
 REPO = Path(__file__).resolve().parent.parent
@@ -40,6 +41,29 @@ def test_hybrid_wrappers_take_plain_path_on_cpu():
         assert torch.equal(a, b)
     out = TH.local_inverse_fused_v2(got[0], got[2], 0.01, 3)
     assert torch.equal(out, TH.local_inverse_v2(got[0], got[2], 0.01, 3))
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (16, 16, 128), (24, 40, 56)])
+def test_flag0_wrappers_take_plain_path_on_cpu(shape):
+    v = _v(shape)
+    got = TH.local_transform_fused(v, 100.0, 2)
+    ref = TH.local_transform(v, 100.0, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    out = TH.local_inverse_fused(got[0], got[1], 0.01, 2)
+    assert torch.equal(out, TH.local_inverse(got[0], got[1], 0.01, 2))
+
+
+@pytest.mark.parametrize("sb,align", [(256, 1), (64, 1024), (1, 4)])
+def test_bfx_wrappers_take_plain_path_on_cpu(sb, align):
+    rng = np.random.default_rng(sb)
+    n = sb * 32 * 3
+    x = rng.standard_normal(n) * rng.choice([0, 5, 5e5, 2e9], n)
+    sym = torch.from_numpy(np.clip(x, -2**31, 2**31 - 1).astype(np.int32))
+    got = TX.encode_core(sym, sb, align)
+    ref = TX.encode_core_plain(sym, sb, align)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    words = got[0][: int(got[2])].contiguous()
+    assert torch.equal(TX.decode_core(words, got[1], sb, align), sym)
 
 
 def _plan(NSB, sbc, E, seed):
@@ -101,12 +125,65 @@ def test_wrappers_raise_on_bad_input():
                         rband, sb_off, cnt, 3, 8, 256, 2, False)
 
 
+def test_bfx_and_flag0_wrappers_raise_on_bad_input():
+    v = _v((16, 16, 128))
+    with pytest.raises(TypeError):
+        TH.local_transform_fused(v.double(), 1.0, 3)
+    for bad in (_v((16, 16, 100)), _v((128,)), _v((8, 8, 8, 8)), _v((4, 64))):
+        with pytest.raises(ValueError):
+            TH.local_transform_fused(bad, 1.0, 3)
+    with pytest.raises(ValueError):
+        TH.local_transform_fused(v.transpose(0, 1), 1.0, 3)
+    with pytest.raises(ValueError):
+        TH.local_transform_fused(v, 1.0, 4)
+    sym = torch.zeros((16, 16, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        TH.local_inverse_fused(sym, torch.zeros((4, 4, 31)), 1.0, 3)
+    with pytest.raises(TypeError):
+        TH.local_inverse_fused(sym.short(), torch.zeros((4, 4, 32)), 1.0, 3)
+    s = torch.zeros(256 * 32, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        TX.encode_core(s, 3, 1)  # sb not a power of two
+    with pytest.raises(ValueError):
+        TX.encode_core(s[:-32], 256, 1)  # not whole superblocks
+    with pytest.raises(ValueError):
+        TX.encode_core(s, 256, 0)
+    with pytest.raises(TypeError):
+        TX.encode_core(s.float(), 256, 1)
+    w = torch.zeros(256, dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        TX.decode_core(torch.zeros(8, dtype=torch.int64), w, 256, 1)
+    with pytest.raises(TypeError):
+        TX.decode_core(torch.zeros(8, dtype=torch.int32), w.int(), 256, 1)
+    with pytest.raises(ValueError):
+        TX.decode_core(torch.zeros((2, 4), dtype=torch.int32), w, 256, 1)
+
+
 def test_no_fallback_on_other_devices():
     """Only a CPU tensor takes the plain version; any other device must
     launch a kernel or raise."""
     v = torch.empty((16, 16, 128), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         TH.local_transform_fused_v2(v, 1.0, 3, 4)
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (16, 16, 128)])
+def test_no_fallback_for_bfx_and_flag0_wrappers(shape):
+    """K5-K8 on a tensor that is neither on the CPU nor on CUDA: no plain
+    fallback, a clear error."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        TH.local_transform_fused(torch.empty(shape, **meta), 1.0, 3)
+    rem = torch.empty(TH.remainder_shape(shape, 3), **meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        TH.local_inverse_fused(torch.empty(shape, dtype=torch.int32, **meta),
+                               rem, 1.0, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        TX.encode_core(torch.empty(256 * 32, dtype=torch.int32, **meta),
+                        256, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        TX.decode_core(torch.empty(8, dtype=torch.int32, **meta),
+                        torch.empty(256, dtype=torch.uint8, **meta), 256, 1)
 
 
 def test_cpu_compress_launches_nothing(monkeypatch):
@@ -118,6 +195,20 @@ def test_cpu_compress_launches_nothing(monkeypatch):
     blob, st = M.compress(v, 1e-3)
     out, st2 = M.decompress(blob)
     assert st == 0 and st2 == 0
+    assert float((out - torch.from_numpy(v)).abs().max()) <= 1e-3
+
+
+def test_cpu_bfx_compress_launches_nothing():
+    """Hybrid+BFX on the CPU (flag 0: the K7/K8 and K5/K6 wrappers) runs
+    the plain versions only."""
+    import mgard_tpu_torch as M
+
+    cfg = M.Config()
+    cfg.lossless = M.lossless_type.BFX
+    v = _v((32, 64, 128)).numpy() * 0.01
+    blob, st = M.compress(v, 1e-3, config=cfg)
+    out, st2 = M.decompress(blob)
+    assert st == 0 and st2 == 0 and b"BFX2" in blob
     assert float((out - torch.from_numpy(v)).abs().max()) <= 1e-3
 
 
