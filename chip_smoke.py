@@ -4,12 +4,12 @@
 
 Phases (each prints a line; any failure exits nonzero before the result):
   1. device: require CUDA; print the card's name and power limit;
-  2. build the CUDA kernels K1-K8 from mgard_tpu_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K9 from mgard_tpu_torch/csrc with nvcc (one
      process per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the
      512^3 geometries of the main path and of Hybrid+BFX (K7/K8 also at
-     8192^2, and all at a few small geometries), with times from CUDA
-     events;
+     8192^2, and all at a few small geometries) and, for K9, at the 384^3
+     MDR field's finest-level stream, with times from CUDA events;
   4. the main path: compress + decompress a 512^3 float32 field at
      tol=1e-3 (s=inf, ABS, default Config) through the public API, with the
      launch counters reset just before and read just after (K1-K4);
@@ -19,10 +19,23 @@ Phases (each prints a line; any failure exits nonzero before the result):
   7. 256^3 streams across devices: written on the card and decoded on the
      CPU (plain path) and on the card, for the flag-1 path, the flag-0
      fallback and Hybrid+BFX; and a Hybrid+BFX stream written on the CPU
-     (sb=256, align=1) decoded on the card.
-The second-to-last line is a JSON summary of the kernels (launches from the
-path each kernel belongs to: K1-K4 phase 4, K5-K8 phase 5); the last line
-is {"ok": true, "device": {...}}.
+     (sb=256, align=1) decoded on the card;
+  8. MDR, the progressive refactor/retrieval path, on the 384^3 bench field
+     (float32, default Config: B=32, zlib planes, direct interleaver):
+     MDRefactor (best of 3) and its device phase, then MDRequest +
+     MDReconstruct at tol 1e-2, 1e-3 and 1e-4, with the launch counters
+     reset just before and read just after (K9, four levels per refactor);
+  9. the same field with mdr_level_compressor="bfx" (K5 on refactor, K6 on
+     reconstruct);
+ 10. MDR across devices at 128^3: a stream written on the card reconstructs
+     on the CPU and one written on the CPU on the card;
+ 11. MDReconstructQoI (V_TOT) over three 128^3 variables on the card.
+The second-to-last line is a JSON summary of the kernels: launches from the
+path each kernel belongs to (K1-K4 phase 4, K5-K8 phase 5, K9 phase 8),
+times from phase 3, and each kernel's bound: the larger of the bytes it
+must move over the card's 3.35 TB/s and its operations over 67 TOP/s (the
+H100 SXM data sheet's float32 rate; integer lane operations counted at the
+same rate). The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -40,6 +53,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 TOL = 1e-3
 DEVICE = "cuda:0"
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# Lane operations per element, read off each kernel's code (an estimate;
+# every one of these kernels is bound by bytes by a wide margin).
+OPS_PER_ELEM = {"hybrid_fwd_v2": 40, "hybrid_inv_v2": 40, "hybrid_fwd": 35,
+                "hybrid_inv": 35}
+N_MDR = 384
+N_MDR_SMALL = 128
 N_MAIN = 512
 N_CROSS = 256
 REPO_KERNELS = {
@@ -59,6 +80,8 @@ REPO_KERNELS = {
                    "mgard_tpu/ops/hybrid.py:333"),
     "hybrid_inv": ("mgard_tpu_torch/csrc/hybrid.cu",
                    "mgard_tpu/ops/hybrid.py:377"),
+    "bitplane_encode": ("mgard_tpu_torch/csrc/bitplane.cu",
+                        "mgard_tpu/mdr/bitplane.py:232"),
 }
 MAIN_PATH = ("hybrid_fwd_v2", "bfp_encode", "bfp_decode", "hybrid_inv_v2")
 BFX_PATH = ("hybrid_fwd", "bfx_encode", "bfx_decode", "hybrid_inv")
@@ -69,12 +92,12 @@ def phase(msg):
     print(msg, flush=True)
 
 
-def bench_field(n, device):
+def bench_field(n, device, seed=42):
     """The smooth multi-mode field of bench.py (same default_rng(42) draws),
     built with torch on the device."""
     x = torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=device)
     X, Y, Z = x[:, None, None], x[None, :, None], x[None, None, :]
-    rng = np.random.default_rng(42)
+    rng = np.random.default_rng(seed)
     v = torch.zeros((n, n, n), dtype=torch.float32, device=device)
     for _ in range(6):
         kx, ky, kz = (int(k) for k in rng.integers(1, 9, 3))
@@ -96,6 +119,43 @@ def time_ms(fn, reps=5):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def host_profile(fn, top=5):
+    """Run fn once under cProfile, ending in a device sync. Returns its wall
+    time (s) and the `top` functions with the most own time, as
+    (seconds, name)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    own = sorted(((v[2], f"{k[2]} ({os.path.basename(k[0])}:{k[1]})")
+                  for k, v in pstats.Stats(prof).stats.items()), reverse=True)
+    return wall, own[:top]
+
+
+def tensor_bytes(*objs):
+    """Bytes of every tensor in objs (nested tuples and lists too)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += tensor_bytes(*o)
+    return total
+
+
+def bound(moved, ops):
+    """Least time (ms) the card could take for the work, and what sets it:
+    the bytes moved at HBM_BYTES_PER_S or the operations at OPS_PER_S."""
+    tb, to = moved / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def max_abs(x, y):
@@ -174,6 +234,10 @@ def main():
     from mgard_tpu_torch.hierarchy import get_hierarchy
     from mgard_tpu_torch.lossless import bfp as B, bfx as X
     from mgard_tpu_torch.ops import hybrid as Hy
+    from mgard_tpu_torch import mdr as MDR
+    from mgard_tpu_torch.mdr import api as MA, bitplane as BP
+    from mgard_tpu_torch.mdr import components as MC
+    from mgard_tpu_torch.mdr.qoi import MDReconstructQoI, VTotQoI
     from mgard_tpu_torch.ops.refactor import decompose
     from mgard_tpu_torch.utils.bytesink import join
 
@@ -189,12 +253,17 @@ def main():
     # -- 3. kernels against their plain versions -------------------------
     rows = {}
 
-    def report(name, err, ms, plain_ms, bound=0.0):
-        if not err <= bound:
-            raise AssertionError(f"{name}: max_abs_err {err} > {bound}")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        phase(f"phase 3 {name}: max_abs_err={err} (bound {bound}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    def report(name, err, ms, plain_ms, moved, ops):
+        """Record a kernel's row (its max_abs_err against the plain version
+        must be 0) with the bound of this run's inputs."""
+        if err != 0.0:
+            raise AssertionError(f"{name}: max_abs_err {err} != 0")
+        bms, by = bound(moved, ops)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=None)
+        phase(f"phase 3 {name}: max_abs_err={err} kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+              f"{moved} bytes, {ops} operations)")
 
     def check_hybrid(v, C, nl, q, timed):
         inv_q = HL._inv_q(q)
@@ -216,12 +285,15 @@ def main():
             return k
         report("hybrid_fwd_v2", err_f,
                time_ms(lambda: Hy.local_transform_fused_v2(v, inv_q, nl, C)),
-               time_ms(lambda: Hy.local_transform_v2(v, inv_q, nl, C), 2))
+               time_ms(lambda: Hy.local_transform_v2(v, inv_q, nl, C), 2),
+               tensor_bytes(v, k), OPS_PER_ELEM["hybrid_fwd_v2"] * v.numel())
         report("hybrid_inv_v2", err_i,
                time_ms(lambda: Hy.local_inverse_fused_v2(
                    k[0], k[2], HL._f32(q), nl)),
                time_ms(lambda: Hy.local_inverse_v2(
-                   k[0], k[2], HL._f32(q), nl), 2))
+                   k[0], k[2], HL._f32(q), nl), 2),
+               tensor_bytes(k[0], k[2], oi),
+               OPS_PER_ELEM["hybrid_inv_v2"] * oi.numel())
         return k
 
     gen = np.random.default_rng(7)
@@ -257,6 +329,8 @@ def main():
     enc_args, enc_kw = enc.calls[0]
     cf_enc = (time_ms(lambda: B.encode_bands(*enc_args, **enc_kw)),
               time_ms(lambda: B.encode_bands_plain(*enc_args, **enc_kw), 2))
+    k2_io = [enc_args, B.encode_bands(*enc_args, **enc_kw)]
+    k2_syms = [enc_args[0].numel()]
     with Recorder(B, "decode_bands") as dec:
         back_k = B.decode_core_zz(out_k[0], crl, out_k[1], K, E, sb,
                                   n_cf // 32, C)
@@ -268,6 +342,7 @@ def main():
     dec_args, dec_kw = dec.calls[0]
     cf_dec = (time_ms(lambda: B.decode_bands(*dec_args, **dec_kw)),
               time_ms(lambda: B.decode_bands_plain(*dec_args, **dec_kw), 2))
+    k3_io = [dec_args, B.decode_bands(*dec_args, **dec_kw)]
     phase(f"phase 3 K2/K3 cf stream: K={K} E={E} sb={sb} C={C}: bytes and "
           f"rows equal; encode {cf_enc[0]:.4f} ms (plain {cf_enc[1]:.4f}), "
           f"decode {cf_dec[0]:.4f} ms (plain {cf_dec[1]:.4f})")
@@ -285,6 +360,8 @@ def main():
     enc_args, enc_kw = enc.calls[0]
     rem_enc = (time_ms(lambda: B.encode_bands(*enc_args, **enc_kw)),
                time_ms(lambda: B.encode_bands_plain(*enc_args, **enc_kw), 2))
+    k2_io += [enc_args, B.encode_bands(*enc_args, **enc_kw)]
+    k2_syms.append(enc_args[0].numel())
     with Recorder(B, "decode_bands") as dec:
         sym_k, _ = B.decode(rblob_k, 0, dev)
     with Recorder(B, "decode_bands", B.decode_bands_plain):
@@ -294,6 +371,7 @@ def main():
     dec_args, dec_kw = dec.calls[0]
     rem_dec = (time_ms(lambda: B.decode_bands(*dec_args, **dec_kw)),
                time_ms(lambda: B.decode_bands_plain(*dec_args, **dec_kw), 2))
+    k3_io += [dec_args, B.decode_bands(*dec_args, **dec_kw)]
     _s = st_k
     phase(f"phase 3 K2/K3 remainder stream: n={rem_sym.numel()} K={_s[2]} "
           f"E={_s[3]} sb={_s[4]} C={_s[8]}: bytes and symbols equal; "
@@ -312,10 +390,15 @@ def main():
         raise AssertionError("K2/K3 wide rows at sb=256 differ")
     phase("phase 3 small K2/K3 wide rows (K=12, E=8) at sb=256, C=2: bytes "
           "and symbols equal")
-    rows["bfp_encode"] = dict(max_abs_err=0.0, ms=cf_enc[0] + rem_enc[0],
-                              plain_ms=cf_enc[1] + rem_enc[1])
-    rows["bfp_decode"] = dict(max_abs_err=0.0, ms=cf_dec[0] + rem_dec[0],
-                              plain_ms=cf_dec[1] + rem_dec[1])
+    # K2/K3 rows: the cf and the remainder stream of the main path together;
+    # operations ~3 lane operations per bit written (ballot, test, select)
+    # plus ~8 per symbol, counting the bits as the words the kernels return
+    ops2 = 8 * sum(k2_syms) + 96 * tensor_bytes(k2_io[1], k2_io[3]) // 4
+    report("bfp_encode", 0.0, cf_enc[0] + rem_enc[0], cf_enc[1] + rem_enc[1],
+           tensor_bytes(k2_io), ops2)
+    report("bfp_decode", 0.0, cf_dec[0] + rem_dec[0], cf_dec[1] + rem_dec[1],
+           tensor_bytes(k3_io), ops2)
+    del k2_io, k3_io
     del pay, cw, rem, out_k, out_p, back_k, back_p, prow
     torch.cuda.empty_cache()
 
@@ -338,7 +421,8 @@ def main():
         return (time_ms(lambda: Hy.local_transform_fused(v, inv_q, nl)),
                 time_ms(lambda: Hy.local_transform(v, inv_q, nl), 2),
                 time_ms(lambda: Hy.local_inverse_fused(sk, rk, qf, nl)),
-                time_ms(lambda: Hy.local_inverse(sk, rk, qf, nl), 2))
+                time_ms(lambda: Hy.local_inverse(sk, rk, qf, nl), 2),
+                tensor_bytes(v, sk, rk), tensor_bytes(sk, rk, ok))
 
     for shp in ((64, 256), (16, 16, 128), (64, 200), (24, 40, 56)):
         vs = torch.from_numpy(gen.standard_normal(shp).astype(np.float32))
@@ -347,8 +431,10 @@ def main():
     phase("phase 3 small K7/K8 at (64,256), (16,16,128), (64,200), "
           "(24,40,56), nl 1-3: equal to plain")
     t3 = check_flag0(v, 3, q, timed=True)
-    report("hybrid_fwd", 0.0, t3[0], t3[1])
-    report("hybrid_inv", 0.0, t3[2], t3[3])
+    report("hybrid_fwd", 0.0, t3[0], t3[1], t3[4],
+           OPS_PER_ELEM["hybrid_fwd"] * v.numel())
+    report("hybrid_inv", 0.0, t3[2], t3[3], t3[5],
+           OPS_PER_ELEM["hybrid_inv"] * v.numel())
     x2 = torch.linspace(0.0, 1.0, 8192, device=dev)
     v2d = torch.sin(6 * np.pi * x2[:, None]) * torch.cos(5 * np.pi * x2[None])
     t2 = check_flag0(v2d, 3, q, timed=True)
@@ -401,11 +487,74 @@ def main():
     if sb != X.SB_BLOCKS or sym.numel() % (sb * 32):
         raise AssertionError(f"512^3 BFX stream: sb={sb}, n={sym.numel()}")
     T, t5 = check_bfx(sym, sb, X.ALIGN, timed=True)
-    report("bfx_encode", 0.0, t5[0], t5[1])
-    report("bfx_decode", 0.0, t5[2], t5[3])
+    # bytes: the symbols, the T stream words and one width byte per block;
+    # operations ~8 per symbol plus ~3 lane operations per bit written
+    bfx_moved = sym.numel() * 4 + 4 * T + sym.numel() // 32
+    bfx_ops = 8 * sym.numel() + 96 * T
+    report("bfx_encode", 0.0, t5[0], t5[1], bfx_moved, bfx_ops)
+    report("bfx_decode", 0.0, t5[2], t5[3], bfx_moved, bfx_ops)
     phase(f"phase 3 K5/K6 on the 512^3 Hybrid+BFX stream: "
           f"{sym.numel()} symbols, sb={sb}, align={X.ALIGN}, {T} words")
     del sym
+    torch.cuda.empty_cache()
+
+    # K9, the MDR bitplane encoder: planes, the level exponent and the max
+    # partials equal to the plain version's; the finished err_sq table
+    # within relative 1e-6 (float32 square sums in another order)
+    def check_k9(v2d, bits, what):
+        exp = BP._level_exp(v2d.abs().max().double())
+        exp_cpu = BP._level_exp(v2d.abs().max().double().cpu())
+        kp, ke, ks = BP.encode_core(v2d, exp, bits)
+        pp, pe, ps = BP.encode_core_plain(v2d, exp, bits)
+        kq = BP._finish_tables(ke, ks)[1]
+        pq = BP._finish_tables(pe, ps)[1]
+        rel = float(((kq - pq).abs() / pq.clamp_min(1e-300)).max())
+        if not (int(exp) == int(exp_cpu) and torch.equal(kp, pp)
+                and torch.equal(ke, pe) and rel <= 1e-6):
+            raise AssertionError(
+                f"K9 differs from plain on {what} B={bits}: planes "
+                f"{torch.equal(kp, pp)}, emax {torch.equal(ke, pe)}, err_sq "
+                f"rel {rel}, exp {int(exp)}/{int(exp_cpu)}")
+        return exp, rel
+
+    worst = 0.0
+    for m, bits in ((2048, 8), (2048, 16), (2048, 32), (4096, 8), (4096, 16),
+                 (4096, 32)):
+        lv = torch.from_numpy((gen.standard_normal(32 * m) * 10.0 ** gen
+                               .integers(-4, 3, 32 * m)).astype(np.float32))
+        worst = max(worst, check_k9(lv.to(dev).reshape(32, m), bits, m)[1])
+    special = np.zeros(32 * 4096, np.float32)
+    special[:12] = [0.0, -0.0, 1e-38, -1e-38, 1e30, -1e30, 1e-45, -1e-45,
+                    3e-41, -7e-40, 1.0, -2.0]
+    special[12:] = gen.standard_normal(special.size - 12) * 1e-3
+    for bits in (16, 32):
+        worst = max(worst, check_k9(torch.from_numpy(special).to(dev)
+                                    .reshape(32, 4096), bits, "specials")[1])
+        check_k9(torch.zeros((32, 2048), device=dev), bits, "zeros")
+    phase(f"phase 3 small K9: one and two tiles at B 8/16/32, an all-zero "
+          f"level, +-0/1e-38/1e30/subnormals: planes, exp and err_max equal "
+          f"to plain, err_sq rel <= {worst:.3e}")
+    v384 = bench_field(N_MDR, dev)
+    h384 = get_hierarchy((N_MDR,) * 3, np.float32, None, cfg)
+    lvl = BP.pad_stream(MC.interleave_level(decompose(v384, h384), h384,
+                                            h384.l_target)).contiguous()
+    if lvl.numel() != 49_479_680:
+        raise AssertionError(f"384^3 finest level pads to {lvl.numel()}")
+    v2d = lvl.reshape(32, -1)
+    exp9, rel9 = check_k9(v2d, 32, "384^3 finest level")
+    k9_out = BP.encode_core(v2d, exp9, 32)
+    report("bitplane_encode", 0.0,
+           time_ms(lambda: BP.encode_core(v2d, exp9, 32)),
+           time_ms(lambda: BP.encode_core_plain(v2d, exp9, 32), 1),
+           tensor_bytes(v2d, k9_out),
+           # per element: ~35 lane operations to quantize and transpose,
+           # then 11 per table entry (mask, subtract, compare, select,
+           # subtract, convert, add, abs, max, multiply, add)
+           v2d.numel() * (35 + 11 * 33))
+    phase(f"phase 3 K9 on the 384^3 field's finest level: "
+          f"{v2d.numel()} elements, B=32, exp {int(exp9)}: planes and "
+          f"err_max equal to plain, err_sq rel {rel9:.3e}")
+    del v384, lvl, v2d, k9_out
     torch.cuda.empty_cache()
 
     # -- 4. the main path ------------------------------------------------
@@ -577,8 +726,157 @@ def main():
               f"(sb, align)={geom}: card decode L-inf {eb_g:.3e}, CPU decode "
               f"{eb_c:.3e}, CPU vs card {db:.3e}")
 
+    del v2, ref, out_gpu, out_cpu
+    torch.cuda.empty_cache()
+
+    # -- 8. MDR on the 384^3 field ----------------------------------------
+    v384 = bench_field(N_MDR, dev)
+    mcfg = M.Config()
+    raw = v384.numel() * 4
+    t_dev = []
+    for _rep in range(3):  # the device phase alone (also a warm-up)
+        t0 = time.perf_counter()
+        res = MA._refactor_levels(v384, h384, 32, False, False, 0)
+        torch.cuda.synchronize()
+        t_dev.append(time.perf_counter() - t0)
+    del res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t_ref = []
+    for _rep in range(3):
+        t0 = time.perf_counter()
+        meta, data = MDR.MDRefactor(v384, mcfg)
+        torch.cuda.synchronize()
+        t_ref.append(time.perf_counter() - t0)
+    stored = len(meta.serialize()) + sum(sum(lm.plane_sizes)
+                                         for lm in meta.levels)
+    recon, prev = [], 0
+    for tol in (1e-2, 1e-3, 1e-4):
+        counts = MDR.MDRequest(meta, tol)
+        meta.prev_used = []
+        nbytes = MDR.retrieve_size(meta, counts)
+        t0 = time.perf_counter()
+        rec = MDR.MDReconstruct(meta, data, counts)
+        torch.cuda.synchronize()
+        tr = time.perf_counter() - t0
+        meta.prev_used = []
+        err = float((rec.data - v384).abs().max())
+        if not (rec.data.device == v384.device and rec.data.dtype
+                == torch.float32 and bool(torch.isfinite(rec.data).all())
+                and err <= tol and nbytes >= prev):
+            raise AssertionError(f"MDR 384^3 tol {tol}: L-inf {err}, "
+                                 f"retrieve {nbytes} bytes (before {prev})")
+        recon.append((tol, nbytes, err, tr, counts))
+        prev = nbytes
+    launches_mdr = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches_mdr["bitplane_encode"] < 4 * 3:
+        raise AssertionError(f"K9 launched {launches_mdr['bitplane_encode']}"
+                             f" times in 3 refactors ({launches_mdr})")
+    phase(f"phase 8 MDR {N_MDR}^3 f32 B=32 zlib: MDRefactor "
+          f"{min(t_ref) * 1e3:.1f} ms ({raw / min(t_ref) / 1e9:.3f} GB/s; "
+          f"best of 3, first {t_ref[0] * 1e3:.1f} ms), device phase "
+          f"{min(t_dev) * 1e3:.1f} ms (best of 3), stored {stored} bytes "
+          f"(ratio {raw / stored:.4f}); peak device memory "
+          f"{peak / 2**30:.3f} GiB; K9 launches "
+          f"{launches_mdr['bitplane_encode']} in 3 refactors")
+    for tol, nbytes, err, tr, counts in recon:
+        phase(f"phase 8 MDReconstruct tol {tol:g}: retrieve {nbytes} bytes "
+              f"(planes per level {counts}), L-inf {err:.3e}, "
+              f"{tr * 1e3:.1f} ms")
+    # where the host time goes: one more refactor and one reconstruct
+    # under cProfile (outside the counted runs above)
+    counts = MDR.MDRequest(meta, 1e-3)
+    for what, fn in (("MDRefactor", lambda: MDR.MDRefactor(v384, mcfg)),
+                     ("MDReconstruct tol 1e-3",
+                      lambda: MDR.MDReconstruct(meta, data, counts))):
+        wall, own = host_profile(fn)
+        phase(f"phase 8 {what} under cProfile: {wall * 1e3:.1f} ms wall; "
+              "most own time: " + "; ".join(f"{name} {t * 1e3:.1f} ms"
+                                            for t, name in own))
+    meta.prev_used = []
+    del rec, data
+
+    # -- 9. the bfx level compressor --------------------------------------
+    bmcfg = M.Config()
+    bmcfg.mdr_level_compressor = "bfx"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    meta_b, data_b = MDR.MDRefactor(v384, bmcfg)
+    torch.cuda.synchronize()
+    tb = time.perf_counter() - t0
+    k5 = kernels.LAUNCHES["bfx_encode"]
+    counts = MDR.MDRequest(meta_b, 1e-3)
+    t0 = time.perf_counter()
+    rec = MDR.MDReconstruct(meta_b, data_b, counts)
+    torch.cuda.synchronize()
+    tbr = time.perf_counter() - t0
+    k6 = kernels.LAUNCHES["bfx_decode"]
+    err = float((rec.data - v384).abs().max())
+    n_bfx = sum(c == MA.PLANE_BFX for lm in meta_b.levels
+                for c in lm.plane_raw)
+    stored_b = len(meta_b.serialize()) + sum(sum(lm.plane_sizes)
+                                             for lm in meta_b.levels)
+    if not (k5 >= 1 and k6 >= 1 and n_bfx >= 1 and err <= 1e-3):
+        raise AssertionError(f"MDR bfx: K5 {k5}, K6 {k6}, BFX planes "
+                             f"{n_bfx}, L-inf {err}")
+    phase(f"phase 9 MDR {N_MDR}^3 bfx planes: MDRefactor {tb * 1e3:.1f} ms, "
+          f"{n_bfx} BFX planes, stored {stored_b} bytes (ratio "
+          f"{raw / stored_b:.4f}); MDReconstruct tol 1e-3 {tbr * 1e3:.1f} "
+          f"ms, L-inf {err:.3e}; launches K9 "
+          f"{kernels.LAUNCHES['bitplane_encode']}, K5 {k5}, K6 {k6}")
+    del rec, data_b, meta_b, v384
+    torch.cuda.empty_cache()
+
+    # -- 10. MDR across devices at 128^3 ----------------------------------
+    v128 = bench_field(N_MDR_SMALL, dev)
+    ref = v128.cpu()
+    tol = 1e-3
+    for writer, src in (("card", v128), ("CPU", ref)):
+        meta_x, data_x = MDR.MDRefactor(src, mcfg)
+        counts = MDR.MDRequest(meta_x, tol)
+        outs = {}
+        for where in (dev, torch.device("cpu")):
+            rec = MDR.MDReconstruct(meta_x, data_x, counts, device=where)
+            outs[where.type] = rec.data.cpu()
+        e_c = float((outs["cpu"] - ref).abs().max())
+        e_g = float((outs["cuda"] - ref).abs().max())
+        d = float((outs["cpu"] - outs["cuda"]).abs().max())
+        # one stream, two devices: the decoded levels are bit-equal, the
+        # recompose matmuls round in another order
+        if not (e_c <= tol and e_g <= tol and d <= 1e-5):
+            raise AssertionError(f"MDR {writer}-written stream: CPU L-inf "
+                                 f"{e_c}, card {e_g}, diff {d}")
+        phase(f"phase 10 MDR {N_MDR_SMALL}^3 stream written on the {writer}: "
+              f"CPU reconstruct L-inf {e_c:.3e}, card {e_g:.3e}, CPU vs "
+              f"card {d:.3e} (bound 1e-5)")
+
+    # -- 11. QoI (V_TOT) over three 128^3 variables -----------------------
+    qcfg = M.Config()
+    qcfg.total_num_bitplanes = 24
+    variables = [bench_field(N_MDR_SMALL, dev, seed=s) + 1.5
+                 for s in (1, 2, 3)]
+    pairs = [MDR.MDRefactor(x, qcfg) for x in variables]
+    qoi_tol = 1e-2
+    t0 = time.perf_counter()
+    vrec, vtot, cert, qcounts = MDReconstructQoI(
+        [p[0] for p in pairs], [p[1] for p in pairs], qoi_tol)
+    torch.cuda.synchronize()
+    tq = time.perf_counter() - t0
+    actual = float((VTotQoI().eval(variables) - vtot).abs().max())
+    if not (cert <= qoi_tol and actual <= cert + 1e-12
+            and vtot.device == v128.device):
+        raise AssertionError(f"QoI: certified {cert}, actual {actual}, "
+                             f"tol {qoi_tol}")
+    phase(f"phase 11 MDReconstructQoI V_TOT over 3 x {N_MDR_SMALL}^3: "
+          f"certified bound {cert:.3e} <= {qoi_tol}, actual {actual:.3e}, "
+          f"{tq * 1e3:.1f} ms, planes per variable "
+          f"{[sum(c) for c in qcounts]}")
+
     path_launches = {**{k: launches_main[k] for k in MAIN_PATH},
-                     **{k: launches_bfx[k] for k in BFX_PATH}}
+                     **{k: launches_bfx[k] for k in BFX_PATH},
+                     "bitplane_encode": launches_mdr["bitplane_encode"]}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=path_launches[k], **rows[k])

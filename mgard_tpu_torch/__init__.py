@@ -3,9 +3,12 @@ compression of scientific grids), written for one NVIDIA H100.
 
 It sits beside the JAX package ``mgard_tpu``, which stays the reference, and
 writes and reads the same streams. It imports neither JAX nor ``mgard_tpu``.
-This slice covers ``compress``/``decompress`` of float32 fields at s=inf
-with the Hybrid decomposition and the BFP lossless stage; the hand-written
-CUDA kernels live in ``csrc/`` and are built at first use (``kernels.py``).
+It covers ``compress``/``decompress`` of float32 fields at s=inf with the
+Hybrid decomposition and the BFP or BFX lossless stage, and the MDR
+progressive refactor/retrieval API (``mgard_tpu_torch.mdr``, float32 and
+float64). The hand-written CUDA kernels live in ``csrc/`` and are built at
+first use (``kernels.py``). Entry points run on the CUDA card unless the
+caller asks for the CPU (``device="cpu"``).
 """
 
 import torch as _torch

@@ -20,9 +20,12 @@ the section's backend id keeps the stream self-describing.
 
 The JAX package writes flag 1 only on a TPU; the port writes it on every
 device, so its CPU path and its CUDA path produce the same format. A tensor
-runs on the device it lives on; a NumPy input goes to ``device`` (default
-CPU). Requests outside the ported paths raise NotImplementedError naming
-the ROADMAP item that brings them.
+runs on the device it lives on; a NumPy input goes to ``device``, and
+``decompress`` decodes onto ``device``: the CUDA card unless the caller
+asks for the CPU (``device="cpu"``). Without a CUDA device a call that asks
+for the card raises RuntimeError; it does not run on the CPU instead.
+Requests outside the ported paths raise NotImplementedError naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -302,15 +305,31 @@ def _serialize_subdomain(state, config: Config) -> list:
     return _flag0_parts(*state[1])
 
 
-def _as_tensor(data, device):
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device``, else the CUDA card.
+    Raises RuntimeError when that is a CUDA device and none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mgard_tpu_torch runs on the CUDA device unless asked otherwise, "
+            "and no CUDA device is available: pass device='cpu' (or a CPU "
+            "tensor) to run on the CPU")
+    return dev
+
+
+def as_tensor(data, device=None):
+    """A torch tensor runs where it lives (``device``, if given, must name
+    that place); anything else becomes a float tensor on
+    ``resolve_device(device)``."""
     if isinstance(data, torch.Tensor):
         if device is not None and torch.device(device) != data.device:
             raise ValueError(f"tensor lives on {data.device}, device={device}")
         return data
+    dev = resolve_device(device)
     arr = np.asarray(data)
     if arr.dtype.kind != "f":
         raise TypeError(f"unsupported dtype {arr.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device or "cpu")
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 
 def _check_slice(s: float, config: Config, dtype) -> None:
@@ -342,14 +361,15 @@ def compress(data, tol: float, s: float = math.inf,
     """Compress a 3D float32 field under an L-inf error bound.
 
     ``data`` is a torch tensor (compressed on its own device) or a NumPy
-    array (moved to ``device``, default CPU). Returns (blob, status)."""
+    array (moved to ``device``, default the CUDA card). Returns (blob,
+    status)."""
     config = config or Config()
     if config.log_level:
         log.level = max(log.level, int(config.log_level))
     t_total = Timer()
     t_total.start()
     try:
-        v = _as_tensor(data, device)
+        v = as_tensor(data, device)
     except TypeError:
         return b"", compress_status_type.NotSupportDataTypeFailure
     if v.ndim < 1 or v.ndim > MAX_DIM:
@@ -472,10 +492,11 @@ def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
 
 
 def decompress(blob: bytes, config: Optional[Config] = None,
-               device="cpu") -> Tuple[Optional[torch.Tensor],
-                                      compress_status_type]:
-    """Decompress a stream of either package onto ``device``. Returns
-    (tensor, status)."""
+               device=None) -> Tuple[Optional[torch.Tensor],
+                                     compress_status_type]:
+    """Decompress a stream of either package onto ``device`` (default the
+    CUDA card). Returns (tensor, status)."""
+    device = resolve_device(device)
     try:
         meta, off = Metadata.deserialize(blob)
     except (FormatError, struct.error):

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "hybrid_fwd": [_P, _F, _P, _P, _I, _I, _I, _I, _P],
     # sym, rem, q, out, X, Y, Z, nl, stream
     "hybrid_inv": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
+    # v, exp, planes, emax, esq, m, B, stream
+    "bitplane_encode": [_P, _P, _P, _P, _P, _L, _I, _P],
 }
 
 # Launch counts per kernel, bumped only where a kernel was launched.

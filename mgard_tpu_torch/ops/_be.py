@@ -1,12 +1,17 @@
-"""Slicing primitives of the multigrid transform on torch tensors.
+"""Slicing primitives of the multigrid transform.
 
-The port of the pieces of ``mgard_tpu/ops/_be.py`` that the dense-matrix
-fast path of ``ops/refactor.py`` uses. The JAX module also dispatches to
-NumPy for its host oracle; the port runs on torch tensors only.
+The port of ``mgard_tpu/ops/_be.py``. ``sl``, ``concat``, ``update_box``
+and ``zeros`` serve the dense-matrix path of ``ops/refactor.py`` on torch
+tensors (``sl`` also slices NumPy arrays). ``pad_zero`` and ``linrec`` are
+the host NumPy oracle that ``ops/axis.py``'s mass/restriction and
+tridiagonal solve run on, which ``refactor._corr_matrix`` probes with
+identity columns; they have no torch branch, as the JAX module's NumPy
+branch has no JAX one.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,3 +34,28 @@ def update_box(v, box, ndim: int):
 
 def zeros(shape, dtype, like):
     return torch.zeros(shape, dtype=dtype, device=like.device)
+
+
+# ----------------------------------------------------------------------
+# Host NumPy oracle
+# ----------------------------------------------------------------------
+def pad_zero(v: np.ndarray, axis: int, before: int, after: int):
+    if before == 0 and after == 0:
+        return v
+    cfg = [(0, 0)] * v.ndim
+    cfg[axis] = (before, after)
+    return np.pad(v, cfg)
+
+
+def linrec(d: np.ndarray, f, axis: int, reverse: bool):
+    """First-order linear recurrence along `axis`, a sequential sweep:
+    y_i = d_i + f_i * y_{i-1} (or i+1 when reversed)."""
+    n = d.shape[axis]
+    y = np.array(d)  # copy
+    ysw = np.moveaxis(y, axis, 0)
+    fsw = np.moveaxis(np.broadcast_to(f, d.shape), axis, 0)
+    rng = range(n - 2, -1, -1) if reverse else range(1, n)
+    step = 1 if reverse else -1
+    for i in rng:
+        ysw[i] = ysw[i] + fsw[i] * ysw[i + step]
+    return y

@@ -1,13 +1,16 @@
 """Multilevel decompose / recompose (the MGARD multigrid transform).
 
 Port of the dense-operator fast path of ``mgard_tpu/ops/refactor.py``
-(``decompose_level_fast`` / ``recompose_level_fast``) for float32 and the
-hierarchical basis (``orthogonal=False``, the s=inf case). Each level applies
-one (nf x nf) interpolation matrix and one 0/1 reorder matrix per axis as a
-float32 ``torch.tensordot``; the JAX package ran the same operators as XLA
-matmuls outside any Pallas kernel. The package sets float32 matmuls to full
-precision (``mgard_tpu_torch/__init__.py``): TF32 would cost a large share
-of a 1e-3 error budget.
+(``decompose_level_fast`` / ``recompose_level_fast``) for float32 and
+float64, in the hierarchical basis and the L2-orthogonal one. Each level
+applies one (nf x nf) interpolation matrix and one 0/1 reorder matrix per
+axis, and for the orthogonal basis one (nc x nf) correction matrix per
+axis, each a ``torch.tensordot`` in the field's type; the JAX package ran
+the same operators as XLA matmuls outside any Pallas kernel. (It runs
+float64 through its slice path instead: the same linear map, rounded in
+another order.) The package sets float32 matmuls to full precision
+(``mgard_tpu_torch/__init__.py``): TF32 would cost a large share of a 1e-3
+error budget.
 
 Output layout is the reference's nested-box ("reo") layout: after the full
 decomposition the level-l data occupies the leading box level_shape[l].
@@ -22,7 +25,7 @@ import torch
 
 from ..hierarchy import Hierarchy
 from . import _be
-from .axis import split_axis
+from .axis import mass_restrict_axis, split_axis, tridiag_solve_axis
 
 # Largest finest-level axis the dense operators are built for (an nf x nf
 # matrix per level and axis), as in the JAX package.
@@ -99,6 +102,29 @@ def _reorder_matrix(hier: Hierarchy, l: int, d: int,
     return _cached(hier, "_reorder_mats", (l, d, inverse), build)
 
 
+def _corr_matrix(hier: Hierarchy, l: int, d: int) -> np.ndarray:
+    """Dense per-(level, axis) correction operator A = M_c^-1 R M_f
+    (nc x nf), built in float64 by probing the NumPy-oracle
+    mass/restriction and tridiagonal solve with identity columns, then cast
+    to the hierarchy's type."""
+    def build():
+        al = hier.axis[l - 1][d]
+        eye = np.eye(al.n_fine, dtype=np.float64)
+        rm = mass_restrict_axis(eye, 0, al)  # (nc, nf) columns = responses
+        return tridiag_solve_axis(rm, 0, al).astype(hier.dtype)
+
+    return _cached(hier, "_corr_mats", (l, d), build)
+
+
+def _correction_mm(resid, hier: Hierarchy, l: int):
+    """L2 projection of the residual onto the coarse grid: one dense
+    correction matmul per axis."""
+    corr = resid
+    for d in range(hier.D):
+        corr = _apply_axis0_mm(_corr_matrix(hier, l, d), corr)
+    return corr
+
+
 def _apply_axis0_mm(A: np.ndarray, x):
     """y = A @ x along axis 0, result axis rotated to the end: composing D
     of these cycles back to the original axis order."""
@@ -106,19 +132,20 @@ def _apply_axis0_mm(A: np.ndarray, x):
     return _rot(torch.tensordot(At, x, dims=([1], [0])))
 
 
-def _check(v, hier: Hierarchy, orthogonal: bool):
-    if orthogonal:
-        raise NotImplementedError(
-            "orthogonal (finite-s) decomposition is not ported yet "
-            "(ROADMAP queue 1 item 9)")
-    if (v.dtype != torch.float32 or hier.dtype != np.float32
-            or max(hier.level_shape[hier.l_target]) > _FAST_MAX_AXIS):
-        raise NotImplementedError(
-            "the port's transform covers float32 axes up to "
-            f"{_FAST_MAX_AXIS} (ROADMAP queue 1 item 9 brings the rest)")
+_TYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def decompose_level(v, hier: Hierarchy, l: int):
+def _check(v, hier: Hierarchy):
+    if _TYPES.get(v.dtype) != hier.dtype:
+        raise TypeError(f"a {v.dtype} field with a {hier.dtype} hierarchy: "
+                        "the transform takes float32 or float64, matching")
+    if max(hier.level_shape[hier.l_target]) > _FAST_MAX_AXIS:
+        raise NotImplementedError(
+            f"the port's transform covers axes up to {_FAST_MAX_AXIS} "
+            "(ROADMAP queue 1 item 9 brings longer ones)")
+
+
+def decompose_level(v, hier: Hierarchy, l: int, orthogonal: bool = False):
     D = hier.D
     interp = v
     for d in range(D):
@@ -127,13 +154,15 @@ def decompose_level(v, hier: Hierarchy, l: int):
     coarse = v
     for d, al in enumerate(hier.axis[l - 1]):
         coarse, _ = split_axis(coarse, d, al.n_fine)
+    if orthogonal:
+        coarse = coarse + _correction_mm(resid, hier, l)
     reo = resid
     for d in range(D):
         reo = _apply_axis0_mm(_reorder_matrix(hier, l, d), reo)
     return _be.update_box(reo, coarse, D)
 
 
-def recompose_level(reo, hier: Hierarchy, l: int):
+def recompose_level(reo, hier: Hierarchy, l: int, orthogonal: bool = False):
     axes = hier.axis[l - 1]
     D = hier.D
     coarse_shape = hier.level_shape[l - 1]
@@ -142,6 +171,8 @@ def recompose_level(reo, hier: Hierarchy, l: int):
     for d in range(D):
         resid = _apply_axis0_mm(_reorder_matrix(hier, l, d, inverse=True),
                                 resid)
+    if orthogonal:
+        coarse_box = coarse_box - _correction_mm(resid, hier, l)
     # scatter the coarse values to their physical (even) positions: the
     # (nf x nc) left block of the inverse reorder permutation
     field = coarse_box
@@ -156,23 +187,25 @@ def recompose_level(reo, hier: Hierarchy, l: int):
 
 def decompose(v, hier: Hierarchy, orthogonal: bool = False):
     """Full multilevel decomposition, finest to coarsest, nested-box output."""
-    _check(v, hier, orthogonal)
+    _check(v, hier)
     for l in range(hier.l_target, 0, -1):
         if l == hier.l_target:
-            v = decompose_level(v, hier, l)
+            v = decompose_level(v, hier, l, orthogonal)
         else:
-            reo = decompose_level(_box(v, hier.level_shape[l]), hier, l)
+            reo = decompose_level(_box(v, hier.level_shape[l]), hier, l,
+                                  orthogonal)
             v = _be.update_box(v, reo, hier.D)
     return v
 
 
 def recompose(v, hier: Hierarchy, orthogonal: bool = False):
     """Full multilevel recomposition, coarsest to finest."""
-    _check(v, hier, orthogonal)
+    _check(v, hier)
     for l in range(1, hier.l_target + 1):
         if l == hier.l_target:
-            v = recompose_level(v, hier, l)
+            v = recompose_level(v, hier, l, orthogonal)
         else:
-            rec = recompose_level(_box(v, hier.level_shape[l]), hier, l)
+            rec = recompose_level(_box(v, hier.level_shape[l]), hier, l,
+                                  orthogonal)
             v = _be.update_box(v, rec, hier.D)
     return v

@@ -81,10 +81,10 @@ def _err(out, v):
 @pytest.mark.parametrize("tol", [1e-2, 1e-3])
 def test_port_flag1_stream_decodes_in_both_packages(bfp_small, tol):
     v = _field(SHAPE)
-    blob, st = M.compress(v, tol)
+    blob, st = M.compress(v, tol, device="cpu")
     assert st == M.compress_status_type.Success
     assert _flag(blob) == 1 and blob.count(b"BFP5") == 2
-    out, st2 = M.decompress(blob)
+    out, st2 = M.decompress(blob, device="cpu")
     assert st2 == M.compress_status_type.Success
     assert out.dtype == torch.float32 and tuple(out.shape) == SHAPE
     assert _err(out, v) <= tol
@@ -98,10 +98,10 @@ def test_jax_flag1_stream_decodes_in_port(bfp_small):
     tol = 1e-3
     jblob, st = mgard_tpu.compress(v, tol=tol)
     assert int(st) == 0 and _flag(jblob) == 1
-    out, st2 = M.decompress(jblob)
+    out, st2 = M.decompress(jblob, device="cpu")
     assert st2 == M.compress_status_type.Success and _err(out, v) <= tol
     # same knobs, same header bytes
-    tblob, _ = M.compress(v, tol)
+    tblob, _ = M.compress(v, tol, device="cpu")
     hj = Metadata.deserialize(jblob)[1]
     assert tblob[:hj] == jblob[:hj]
 
@@ -111,13 +111,13 @@ def test_tight_tolerance_takes_flag0_in_both_packages(bfp_small):
     package decodes the other's flag-0 stream."""
     v = _field(SHAPE)
     tol = 1e-5
-    blob, st = M.compress(v, tol)
+    blob, st = M.compress(v, tol, device="cpu")
     assert st == M.compress_status_type.Success and _flag(blob) == 0
     outj, stj = mgard_tpu.decompress(blob)
     assert int(stj) == 0 and _err(outj, v) <= tol
     jblob, st2 = mgard_tpu.compress(v, tol=tol)  # CPU JAX writes flag 0
     assert int(st2) == 0 and _flag(jblob) == 0
-    out, st3 = M.decompress(jblob)
+    out, st3 = M.decompress(jblob, device="cpu")
     assert st3 == M.compress_status_type.Success and _err(out, v) <= tol
 
 
@@ -128,16 +128,16 @@ def test_stale_sticky_K_rechoose(bfp_small):
     shape = (16, 128, 256)
     v = _field(shape)
     key = ("v2", int(np.prod(shape)), 8, 8, 0)
-    b1, s1 = M.compress(v, 1e-2)
+    b1, s1 = M.compress(v, 1e-2, device="cpu")
     assert s1 == 0 and key in TB._K_CACHE
     K1 = TB._K_CACHE[key][0]
-    b2, s2 = M.compress(v, 1e-4)
+    b2, s2 = M.compress(v, 1e-4, device="cpu")
     assert s2 == 0
     K2 = TB._K_CACHE[key][0]
     assert K2 > K1, (K1, K2)
     for blob, tol in ((b1, 1e-2), (b2, 1e-4)):
         assert _flag(blob) == 1
-        out, st = M.decompress(blob)
+        out, st = M.decompress(blob, device="cpu")
         assert st == 0 and _err(out, v) <= tol
         outj, stj = mgard_tpu.decompress(blob)
         assert int(stj) == 0 and _err(outj, v) <= tol
@@ -146,10 +146,10 @@ def test_stale_sticky_K_rechoose(bfp_small):
 def test_rel_mode(bfp_small):
     v = _field(SHAPE) * np.float32(7.0)
     tol = 1e-3
-    blob, st = M.compress(v, tol, mode=M.error_bound_type.REL)
+    blob, st = M.compress(v, tol, mode=M.error_bound_type.REL, device="cpu")
     assert st == 0
     bound = tol * float(np.max(np.abs(v)))
-    out, _ = M.decompress(blob)
+    out, _ = M.decompress(blob, device="cpu")
     assert _err(out, v) <= bound
     outj, _ = mgard_tpu.decompress(blob)
     assert _err(outj, v) <= bound
@@ -157,7 +157,7 @@ def test_rel_mode(bfp_small):
 
 def test_tensor_input_stays_on_its_device(bfp_small):
     v = _field(SHAPE)
-    blob_np, _ = M.compress(v, 1e-3)
+    blob_np, _ = M.compress(v, 1e-3, device="cpu")
     blob_t, _ = M.compress(torch.from_numpy(v), 1e-3)
     assert blob_np == blob_t
     with pytest.raises(ValueError):
@@ -183,11 +183,11 @@ def test_bfx_section_and_flag2_raise_clearly(fresh_k_caches):
     other's flag-1 stream; a flag-2 stream still raises clearly."""
     v = _field(SHAPE)
     tol = 1e-3
-    blob, st = M.compress(v, tol)
+    blob, st = M.compress(v, tol, device="cpu")
     assert st == 0 and _flag(blob) == 1
     assert _raw_backend(blob) == M.lossless_type.BFX
     assert blob.count(b"BFP5") == 1 and blob.count(b"BFX2") == 1
-    out, st2 = M.decompress(blob)
+    out, st2 = M.decompress(blob, device="cpu")
     assert st2 == 0 and _err(out, v) <= tol
     outj, stj = mgard_tpu.decompress(blob)
     assert int(stj) == 0 and _err(outj, v) <= tol
@@ -195,13 +195,13 @@ def test_bfx_section_and_flag2_raise_clearly(fresh_k_caches):
     jblob, st = mgard_tpu.compress(v, tol=tol)
     assert int(st) == 0 and _flag(jblob) == 1
     assert _raw_backend(jblob) == M.lossless_type.BFX
-    out, st3 = M.decompress(jblob)
+    out, st3 = M.decompress(jblob, device="cpu")
     assert st3 == 0 and _err(out, v) <= tol
     bad = bytearray(blob)
     _m, off = Metadata.deserialize(blob)
     bad[off + 8 + len(THL._EMPTY_OUTLIERS)] = 2
     with pytest.raises(NotImplementedError, match="flag-2"):
-        M.decompress(bytes(bad))
+        M.decompress(bytes(bad), device="cpu")
 
 
 def _bfx_config():
@@ -221,16 +221,16 @@ def test_bfx_backend_streams_cross_decode(fresh_k_caches, shape):
     v = _field(shape) if len(shape) == 3 else _field(shape + (1,))[..., 0]
     tol = 1e-3
     jcfg, cfg = _bfx_config()
-    blob, st = M.compress(v, tol, config=cfg)
+    blob, st = M.compress(v, tol, config=cfg, device="cpu")
     assert st == 0 and _flag(blob) == 0
     assert _raw_backend(blob) == M.lossless_type.BFX
-    out, st2 = M.decompress(blob)
+    out, st2 = M.decompress(blob, device="cpu")
     assert st2 == 0 and tuple(out.shape) == shape and _err(out, v) <= tol
     outj, stj = mgard_tpu.decompress(blob)
     assert int(stj) == 0 and _err(outj, v) <= tol
     jblob, st3 = mgard_tpu.compress(v, tol=tol, config=jcfg)
     assert int(st3) == 0 and _flag(jblob) == 0
-    out, st4 = M.decompress(jblob)
+    out, st4 = M.decompress(jblob, device="cpu")
     assert st4 == 0 and _err(out, v) <= tol
     hj = Metadata.deserialize(jblob)[1]
     assert blob[:hj] == jblob[:hj]
@@ -242,28 +242,48 @@ def test_bfx_stream_of_a_4d_field_decodes_in_both_packages(fresh_k_caches):
     shape = (8, 8, 64, 64)
     v = _field((8, 1, 8 * 64 * 64)).reshape(shape)
     tol = 1e-3
-    blob, st = M.compress(v, tol, config=_bfx_config()[1])
+    blob, st = M.compress(v, tol, config=_bfx_config()[1], device="cpu")
     assert st == 0 and _flag(blob) == 0
     assert _raw_backend(blob) == M.lossless_type.BFX
-    out, st2 = M.decompress(blob)
+    out, st2 = M.decompress(blob, device="cpu")
     assert st2 == 0 and tuple(out.shape) == shape and _err(out, v) <= tol
     outj, stj = mgard_tpu.decompress(blob)
     assert int(stj) == 0 and _err(outj, v) <= tol
 
 
 def test_status_codes():
-    assert M.compress(np.zeros((2,) * 6, np.float32), 1e-3)[1] == \
+    cpu = dict(device="cpu")
+    assert M.compress(np.zeros((2,) * 6, np.float32), 1e-3, **cpu)[1] == \
         M.compress_status_type.NotSupportHigherNumberOfDimensionsFailure
-    assert M.compress(np.zeros((8, 8), np.int32), 1e-3)[1] == \
+    assert M.compress(np.zeros((8, 8), np.int32), 1e-3, **cpu)[1] == \
         M.compress_status_type.NotSupportDataTypeFailure
-    assert M.decompress(b"not a stream")[1] == M.compress_status_type.Failure
+    assert M.decompress(b"not a stream", **cpu)[1] == \
+        M.compress_status_type.Failure
     with pytest.raises(NotImplementedError, match="item 9"):
-        M.compress(np.zeros((8, 8, 8), np.float32), 1e-3)
+        M.compress(np.zeros((8, 8, 8), np.float32), 1e-3, **cpu)
+
+
+def test_default_device_is_the_card(monkeypatch, fresh_k_caches):
+    """With no CUDA device, a call that leaves the device to its default
+    raises and names device='cpu'; it never quietly runs on the CPU. A CPU
+    tensor is the caller asking for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    v = _field(SHAPE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.compress(v, 1e-3)
+    blob, st = M.compress(torch.from_numpy(v), 1e-3)
+    assert st == 0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.decompress(blob)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.decompress(blob, device="cuda")
+    out, st2 = M.decompress(blob, device="cpu")
+    assert st2 == 0 and out.device.type == "cpu" and _err(out, v) <= 1e-3
 
 
 def test_truncated_stream_fails_cleanly(bfp_small):
-    blob, _ = M.compress(_field(SHAPE), 1e-3)
-    out, st = M.decompress(blob[: len(blob) // 2])
+    blob, _ = M.compress(_field(SHAPE), 1e-3, device="cpu")
+    out, st = M.decompress(blob[: len(blob) // 2], device="cpu")
     assert out is None and st == M.compress_status_type.Failure
     (sec_len,) = struct.unpack_from("<Q", blob,
                                     Metadata.deserialize(blob)[1])
@@ -277,11 +297,11 @@ def test_subdomains_cross_decode(bfp_small):
     cfg = M.Config()
     cfg.max_memory_footprint = 64 * 64 * 64 * 44 + 1
     tol = 1e-3
-    blob, st = M.compress(v, tol, config=cfg)
+    blob, st = M.compress(v, tol, config=cfg, device="cpu")
     assert st == 0
     meta, _ = Metadata.deserialize(blob)
     assert meta.domain_decomposed and _flag(blob) == 0
-    out, st2 = M.decompress(blob)
+    out, st2 = M.decompress(blob, device="cpu")
     assert st2 == 0 and _err(out, v) <= tol
     outj, stj = mgard_tpu.decompress(blob)
     assert int(stj) == 0 and _err(outj, v) <= tol
@@ -294,5 +314,5 @@ def test_jax_demoted_f64_stream_decodes_in_port(bfp_small):
     tol = 1e-3
     jblob, st = mgard_tpu.compress(v, tol=tol)
     assert int(st) == 0 and Metadata.deserialize(jblob)[0].demoted
-    out, st2 = M.decompress(jblob)
+    out, st2 = M.decompress(jblob, device="cpu")
     assert st2 == 0 and out.dtype == torch.float64 and _err(out, v) <= tol

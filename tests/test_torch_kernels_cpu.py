@@ -192,8 +192,8 @@ def test_cpu_compress_launches_nothing(monkeypatch):
     monkeypatch.setattr(TB, "SB_PALLAS_MIN", 256)
     monkeypatch.setattr(TB, "_K_CACHE", {})
     v = _v((64, 64, 128)).numpy() * 0.01
-    blob, st = M.compress(v, 1e-3)
-    out, st2 = M.decompress(blob)
+    blob, st = M.compress(v, 1e-3, device="cpu")
+    out, st2 = M.decompress(blob, device="cpu")
     assert st == 0 and st2 == 0
     assert float((out - torch.from_numpy(v)).abs().max()) <= 1e-3
 
@@ -206,8 +206,8 @@ def test_cpu_bfx_compress_launches_nothing():
     cfg = M.Config()
     cfg.lossless = M.lossless_type.BFX
     v = _v((32, 64, 128)).numpy() * 0.01
-    blob, st = M.compress(v, 1e-3, config=cfg)
-    out, st2 = M.decompress(blob)
+    blob, st = M.compress(v, 1e-3, config=cfg, device="cpu")
+    out, st2 = M.decompress(blob, device="cpu")
     assert st == 0 and st2 == 0 and b"BFX2" in blob
     assert float((out - torch.from_numpy(v)).abs().max()) <= 1e-3
 

@@ -1,0 +1,273 @@
+"""PyTorch port, MDR API: MDRefactor -> MDRequest -> MDReconstruct on the
+CPU (K9's plain version), held against the error bounds and against
+``mgard_tpu.mdr`` on the same NumPy inputs: a float32 64^3 field and a
+float64 33^3 field, each refactored once per package and reused.
+
+Tolerances: every reconstruction meets its requested L-inf (or RMS) bound.
+The two packages' reconstructions of one stream decode bit-equal levels and
+differ only by the recompose's rounding order: within 1e-5 (float32) and
+1e-12 (float64). The packages' own refactors of the same field are not
+compared plane by plane: at 64^3 the coarsest coefficients of a smooth field
+are rounding noise, which two summation orders make differently.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from mgard_tpu import Config as JConfig
+from mgard_tpu import mdr as JM
+from mgard_tpu.mdr import api as JA
+from mgard_tpu.mdr import components as JC
+import mgard_tpu_torch as M
+from mgard_tpu_torch import mdr as TM
+from mgard_tpu_torch.mdr import api as TA
+from mgard_tpu_torch.mdr import components as TC
+
+CPU = "cpu"
+TOLS = (1e-1, 1e-2, 1e-3)
+
+
+def smooth(shape, seed=0):
+    """tests/test_mdr.py's field."""
+    rng = np.random.default_rng(seed)
+    axes = [np.linspace(0, 1, n) for n in shape]
+    grids = np.meshgrid(*axes, indexing="ij")
+    v = np.zeros(shape)
+    for _ in range(3):
+        ks = rng.integers(1, 5, len(shape))
+        acc = rng.uniform(0, 2 * np.pi)
+        for k, g in zip(ks, grids):
+            acc = acc + 2 * np.pi * k * g
+        v += rng.uniform(0.3, 1.0) * np.sin(acc)
+    return v
+
+
+FIELDS = {"f32": ((64, 64, 64), np.float32), "f64": ((33, 33, 33), np.float64)}
+AGREE = {"f32": 1e-5, "f64": 1e-12}
+
+
+@pytest.fixture(scope="module")
+def field():
+    return {k: smooth(s).astype(dt) for k, (s, dt) in FIELDS.items()}
+
+
+@pytest.fixture(scope="module")
+def port_streams(field):
+    return {k: TM.MDRefactor(v, device=CPU) for k, v in field.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_streams(field):
+    return {k: JM.MDRefactor(v) for k, v in field.items()}
+
+
+def _err(out, v):
+    out = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+    return float(np.max(np.abs(out.astype(np.float64) - v)))
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64"])
+def test_progressive_bound_holds(kind, field, port_streams):
+    v = field[kind]
+    meta, data = port_streams[kind]
+    assert meta.dtype == M.data_type.Float if kind == "f32" \
+        else meta.dtype == M.data_type.Double
+    prev_bytes, prev_err = 0, math.inf
+    for tol in TOLS:
+        counts = TM.MDRequest(meta, tol)
+        meta.prev_used = []
+        nbytes = TM.retrieve_size(meta, counts)
+        rec = TM.MDReconstruct(meta, data, counts, device=CPU)
+        assert rec.data.dtype == torch.from_numpy(v).dtype
+        assert rec.data.device.type == "cpu"
+        err = _err(rec.data, v)
+        assert err <= tol, (tol, err)
+        assert nbytes >= prev_bytes and err <= prev_err + 1e-14
+        prev_bytes, prev_err = nbytes, err
+    meta.prev_used = []
+
+
+def test_finite_s_rms_bound(field, port_streams):
+    v = field["f32"]
+    meta, data = port_streams["f32"]
+    tol = 1e-3
+    counts = TM.MDRequest(meta, tol, s=0.0)
+    rec = TM.MDReconstruct(meta, data, counts, device=CPU)
+    rms = float(np.sqrt(np.mean((rec.data.numpy().astype(np.float64) - v)
+                                ** 2)))
+    assert rms <= tol
+    meta.prev_used = []
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64"])
+def test_streams_cross_decode(kind, field, port_streams, jax_streams):
+    """A JAX-written stream (metadata bytes + planes) reconstructs in the
+    port and a port-written one in JAX, each within tol; on one stream the
+    two packages agree to AGREE[kind]."""
+    v, tol = field[kind], 1e-2
+    for writer, (meta, data) in (("port", port_streams[kind]),
+                                 ("jax", jax_streams[kind])):
+        blob = meta.serialize()
+        tmeta, used = TA.RefactoredMetadata.deserialize(blob)
+        jmeta, _ = JA.RefactoredMetadata.deserialize(blob)
+        assert used == len(blob)
+        counts = TM.MDRequest(tmeta, tol)
+        assert JM.MDRequest(jmeta, tol) == counts, writer
+        out_t = TM.MDReconstruct(tmeta, TA.RefactoredData(data.planes),
+                                 counts, device=CPU).data.numpy()
+        out_j = JM.MDReconstruct(jmeta, JA.RefactoredData(data.planes),
+                                 counts).data
+        assert _err(out_t, v) <= tol and _err(out_j, v) <= tol, writer
+        assert float(np.max(np.abs(out_t - out_j))) <= AGREE[kind], writer
+
+
+def test_metadata_bytes_are_the_jax_layout(jax_streams):
+    """Deserializing a JAX-written header and serializing it again in the
+    port gives the same bytes."""
+    for meta, _ in jax_streams.values():
+        blob = meta.serialize()
+        tmeta, _ = TA.RefactoredMetadata.deserialize(blob)
+        assert tmeta.serialize() == blob
+    with pytest.raises(M.formats.metadata.FormatError, match="revision"):
+        TA.RefactoredMetadata.deserialize(b"MDRTPU1\x00" + blob[8:])
+
+
+@pytest.mark.parametrize("reorganized", [False, True])
+def test_files_cross_read(tmp_path, reorganized, field, port_streams,
+                          jax_streams):
+    """write_mdr files (level-major and reorganized) read in the other
+    package with byte-ranged plane retrieval."""
+    v, tol = field["f64"], 1e-2
+    for writer in ("port", "jax"):
+        meta, data = (port_streams if writer == "port" else jax_streams)["f64"]
+        meta.reorganized = reorganized
+        path = str(tmp_path / f"{writer}.mdr")
+        (TA if writer == "port" else JA).write_mdr(path, meta, data, s=0.0)
+        meta.reorganized = False
+        reader = JA if writer == "port" else TA
+        m2, hdr = reader.read_mdr_metadata(path)
+        assert m2.reorganized == reorganized and m2.reorg_s == (
+            0.0 if reorganized else math.inf)
+        assert TA.segment_order(m2) == JA.segment_order(m2)
+        counts = (JM if reader is JA else TM).MDRequest(m2, tol)
+        part = reader.read_mdr_planes(path, m2, counts, hdr)
+        if reader is JA:
+            out = JM.MDReconstruct(m2, part, counts).data
+        else:
+            out = TM.MDReconstruct(m2, part, counts, device=CPU).data
+        assert _err(out, v) <= tol, writer
+        fetched = sum(len(b) for lvl in part.planes for b in lvl)
+        assert fetched < sum(sum(lm.plane_sizes) for lm in m2.levels)
+
+
+@pytest.mark.parametrize("mode", ["blocked", "sfc"])
+def test_interleavers_roundtrip_and_persist(mode, field):
+    v, tol = field["f32"], 1e-3
+    cfg = M.Config()
+    cfg.mdr_interleaver = mode
+    meta, data = TM.MDRefactor(v, cfg, device=CPU)
+    ilv = {"blocked": 1, "sfc": 2}[mode]
+    assert meta.interleaver == ilv
+    assert JA.RefactoredMetadata.deserialize(meta.serialize())[0] \
+        .interleaver == ilv
+    counts = TM.MDRequest(meta, tol)
+    rec = TM.MDReconstruct(meta, data, counts, device=CPU)
+    assert _err(rec.data, v) <= tol
+    # the region orders are the JAX package's
+    for shape in ((8, 8), (16, 16, 16), (12, 8, 4), (6, 5)):
+        x = np.arange(int(np.prod(shape))).reshape(shape)
+        want = np.asarray(JC.region_interleave(x, ilv))
+        got = TC.region_interleave(torch.from_numpy(x), ilv)
+        np.testing.assert_array_equal(got.numpy(), want)
+        back = TC.region_deinterleave(got, shape, ilv)
+        np.testing.assert_array_equal(back.numpy(), x)
+
+
+@pytest.mark.parametrize("codec", ["zlib", "bfx", "raw"])
+def test_level_compressors_decode(codec, field):
+    """Every level compressor decodes in both packages; bfx packs the
+    planes of >= 8192 words (the finest level here) as BFX blobs."""
+    v, tol = field["f32"], 1e-2
+    cfg = M.Config()
+    cfg.mdr_level_compressor = codec
+    meta, data = TM.MDRefactor(v, cfg, device=CPU)
+    ids = {c for lm in meta.levels for c in lm.plane_raw}
+    want = {"zlib": {TA.PLANE_ZLIB, TA.PLANE_RAW},
+            "bfx": {TA.PLANE_BFX, TA.PLANE_RAW}, "raw": {TA.PLANE_RAW}}
+    assert ids <= want[codec] and (codec == "raw" or len(ids) == 2)
+    counts = TM.MDRequest(meta, tol)
+    out_t = TM.MDReconstruct(meta, data, counts, device=CPU).data.numpy()
+    assert _err(out_t, v) <= tol
+    # the JAX package decodes the same blobs on a short plan (at most two
+    # magnitude planes a level): each BFX plane blob has its own length,
+    # and each length costs the JAX decoder a compile
+    short = [min(c, 2) for c in counts]
+    out_s = TM.MDReconstruct(meta, data, short, device=CPU).data.numpy()
+    jmeta, _ = JA.RefactoredMetadata.deserialize(meta.serialize())
+    out_j = JM.MDReconstruct(jmeta, JA.RefactoredData(data.planes),
+                             short).data
+    assert float(np.max(np.abs(out_s - out_j))) <= AGREE["f32"]
+
+
+def test_orthogonal_basis_roundtrip(field):
+    """The L2-orthogonal basis (the dense correction operators): the port's
+    stream meets tol in the port and in the JAX package."""
+    v, tol = field["f32"], 1e-3
+    cfg = M.Config()
+    cfg.mdr_orthogonal_basis = True
+    meta, data = TM.MDRefactor(v, cfg, device=CPU)
+    assert meta.orthogonal
+    counts = TM.MDRequest(meta, tol)
+    out_t = TM.MDReconstruct(meta, data, counts, device=CPU).data.numpy()
+    assert _err(out_t, v) <= tol
+    jmeta, _ = JA.RefactoredMetadata.deserialize(meta.serialize())
+    jcfg = JConfig()
+    jcfg.mdr_orthogonal_basis = True
+    out_j = JM.MDReconstruct(jmeta, JA.RefactoredData(data.planes), counts,
+                             jcfg).data
+    assert _err(out_j, v) <= tol
+    assert float(np.max(np.abs(out_t - out_j))) <= AGREE["f32"]
+
+
+def test_negabinary_roundtrip():
+    v = np.random.default_rng(3).standard_normal((17, 17)).astype(np.float32)
+    cfg = M.Config()
+    cfg.mdr_encoding = M.dtypes.bitplane_encoding_type.NegaBinary
+    cfg.total_num_bitplanes = 30
+    meta, data = TM.MDRefactor(v, cfg, device=CPU)
+    assert meta.sign_rows == 0
+    for tol in TOLS:
+        counts = TM.MDRequest(meta, tol)
+        meta.prev_used = []
+        assert _err(TM.MDReconstruct(meta, data, counts, device=CPU).data,
+                    v) <= tol
+
+
+def test_default_device_is_the_card(monkeypatch, port_streams):
+    """Without CUDA, MDRefactor of a NumPy array and MDReconstruct with no
+    device raise and name device='cpu'; a CPU tensor refactors on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    v = np.zeros((9, 9), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.MDRefactor(v)
+    meta, data = TM.MDRefactor(torch.from_numpy(v))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.MDReconstruct(meta, data, TM.MDRequest(meta, 1e-2))
+    out = TM.MDReconstruct(meta, data, TM.MDRequest(meta, 1e-2), device=CPU)
+    assert out.data.device.type == "cpu"
+
+
+def test_unported_parts_raise():
+    from mgard_tpu_torch.mdr import cli
+    from mgard_tpu_torch.parallel import mdr_sharded
+
+    with pytest.raises(NotImplementedError, match="item 13"):
+        cli.main([])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        mdr_sharded.MDRefactorSharded(np.zeros((8, 8), np.float32))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TM.MDRefactor(np.zeros((4100, 2), np.float32), device=CPU)
