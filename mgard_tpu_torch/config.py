@@ -95,7 +95,10 @@ class Config:
     # default 8; explicit range 1..15 — residual lengths are 4-bit nibbles).
     bfp_base_planes: int = 0
     bfp_resid_planes: int = 0
-    # The fused transform+pack front end (hybrid flag 2); not ported yet.
+    # The fused transform+pack front end (hybrid flag 2, kernels K10/K11):
+    # streams of a shape whose BFP base-plane count is known (set above, or
+    # primed by the shape's first flag-1 stream) are packed by one entry
+    # point, chunks in tile-major order.
     hybrid_fused_pack: bool = False
     # BFP superblock size in 32-symbol blocks (None = default).
     bfp_sb_blocks: Optional[int] = None

@@ -21,43 +21,11 @@
 // loads and stores run along z; the u16 payload is stored in grouped order
 // in runs of 8 (one run per z class and tile).
 #include "common.cuh"
-#include "local8.cuh"
+#include "tile8.cuh"
 
 namespace {
 
-constexpr int ZT = 64;              // z extent of a tile: 8 whole 8-blocks
-constexpr int TILE = 8 * 8 * ZT;    // elements per tile
-constexpr int NT = 256;             // threads per block
-constexpr int MAX_H = 32;           // chunk rows per (x, y) row (Z <= 1024)
-
-// One level-axis interpolation pass over the tile, in place: it writes only
-// the level's coefficient positions along `axis` and reads only coarse
-// ones, so no element is read after it is written within the pass.
-__device__ void interp_pass(float* w, int axis, int lvl) {
-  const int stride = axis == 0 ? 8 * ZT : axis == 1 ? ZT : 1;
-  for (int e = threadIdx.x; e < TILE; e += NT) {
-    const int p = axis == 0 ? e / (8 * ZT) : axis == 1 ? (e / ZT) & 7 : e & 7;
-    if (!is_fine(lvl, p)) continue;
-    int lp, rp;
-    float wl, wr;
-    lerp_rule(lvl, p, lp, rp, wl, wr);
-    const float a = __fmul_rn(wl, w[e - (p - lp) * stride]);
-    const float b = __fmul_rn(wr, w[e + (rp - p) * stride]);
-    w[e] = __fadd_rn(a, b);
-  }
-}
-
-// Tile element (xi, yi, zi) for the o-th slot of the payload order, in which
-// consecutive slots run along the grouped z axis: slot oz = c*8 + jj holds
-// natural z = 8*jj + c of the tile.
-__device__ __forceinline__ void payload_slot(int o, int& xi, int& yi, int& c,
-                                             int& jj) {
-  xi = o / (8 * ZT);
-  yi = (o / ZT) & 7;
-  const int oz = o % ZT;
-  c = oz / (ZT / 8);
-  jj = oz % (ZT / 8);
-}
+constexpr int MAX_H = 32;  // chunk rows per (x, y) row (Z <= 1024)
 
 __global__ void __launch_bounds__(NT)
 hybrid_fwd_v2_kernel(const float* __restrict__ v, float inv_q,
@@ -80,19 +48,7 @@ hybrid_fwd_v2_kernel(const float* __restrict__ v, float inv_q,
       vs[e] = v[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + z0 + zi];
     }
     __syncthreads();
-    for (int lvl = 0; lvl < nl; ++lvl) {
-      for (int e = threadIdx.x; e < TILE; e += NT) ws[e] = vs[e];
-      __syncthreads();
-      for (int axis = 0; axis < 3; ++axis) {
-        interp_pass(ws, axis, lvl);
-        __syncthreads();
-      }
-      for (int e = threadIdx.x; e < TILE; e += NT) {
-        const int xi = e / (8 * ZT), yi = (e / ZT) & 7, pz = e & 7;
-        if (coeff3(lvl, xi, yi, pz)) vs[e] = __fsub_rn(vs[e], ws[e]);
-      }
-      __syncthreads();
-    }
+    decompose_tile(vs, ws, nl);
     for (int o = threadIdx.x; o < TILE; o += NT) {
       int xi, yi, c, jj;
       payload_slot(o, xi, yi, c, jj);
@@ -100,15 +56,9 @@ hybrid_fwd_v2_kernel(const float* __restrict__ v, float inv_q,
       const int jz = (z0 >> 3) + jj;
       unsigned zz = 0u;
       if (in_chain(nl, xi) && in_chain(nl, yi) && in_chain(nl, c)) {
-        const size_t r = ((size_t)((x0 >> 3) * k + rem_col(nl, xi)) * RY +
-                          (y0 >> 3) * k + rem_col(nl, yi)) * RZ +
-                         jz * k + rem_col(nl, c);
-        rem[r] = val;
+        rem[rem_index(nl, k, RY, RZ, x0, y0, xi, yi, jz, c)] = val;
       } else {
-        const float t = __fmul_rn(val, inv_q);
-        const float h = t < 0.f ? __fsub_rn(t, 0.5f) : __fadd_rn(t, 0.5f);
-        const int sym = __float2int_rz(h);
-        zz = ((unsigned)sym << 1) ^ (unsigned)(sym >> 31);
+        zz = quantize_zigzag(val, inv_q);
       }
       const int gz = c * g + jz;
       pay[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + gz] = (uint16_t)(zz & 0xFFFFu);
@@ -143,34 +93,15 @@ hybrid_inv_v2_kernel(const uint16_t* __restrict__ pay,
       const int jz = (z0 >> 3) + jj;
       float val;
       if (in_chain(nl, xi) && in_chain(nl, yi) && in_chain(nl, c)) {
-        val = rem[((size_t)((x0 >> 3) * k + rem_col(nl, xi)) * RY +
-                   (y0 >> 3) * k + rem_col(nl, yi)) * RZ +
-                  jz * k + rem_col(nl, c)];
+        val = rem[rem_index(nl, k, RY, RZ, x0, y0, xi, yi, jz, c)];
       } else {
-        const unsigned zz =
-            pay[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + c * g + jz];
-        const int sym = (int)(zz >> 1) ^ -(int)(zz & 1u);
-        val = __fmul_rn(__int2float_rn(sym), q);
+        val = unzigzag_dequantize(
+            pay[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + c * g + jz], q);
       }
       xs[(xi * 8 + yi) * ZT + 8 * jj + c] = val;
     }
     __syncthreads();
-    for (int lvl = nl - 1; lvl >= 0; --lvl) {
-      for (int e = threadIdx.x; e < TILE; e += NT) {
-        const int xi = e / (8 * ZT), yi = (e / ZT) & 7, pz = e & 7;
-        ys[e] = coeff3(lvl, xi, yi, pz) ? 0.f : xs[e];
-      }
-      __syncthreads();
-      for (int axis = 0; axis < 3; ++axis) {
-        interp_pass(ys, axis, lvl);
-        __syncthreads();
-      }
-      for (int e = threadIdx.x; e < TILE; e += NT) {
-        const int xi = e / (8 * ZT), yi = (e / ZT) & 7, pz = e & 7;
-        if (coeff3(lvl, xi, yi, pz)) xs[e] = __fadd_rn(xs[e], ys[e]);
-      }
-      __syncthreads();
-    }
+    recompose_tile(xs, ys, nl);
     for (int e = threadIdx.x; e < TILE; e += NT) {
       const int xi = e / (8 * ZT), yi = (e / ZT) & 7, zi = e % ZT;
       out[((size_t)(x0 + xi) * Y + (y0 + yi)) * Z + z0 + zi] = xs[e];

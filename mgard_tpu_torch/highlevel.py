@@ -9,6 +9,10 @@ package, so either package decodes what the other wrote:
 - flag 1 ("v2", lossless=BFP, 3D): the cf stream as a prepared BFP5 blob
   (kernels K1 and K2), then the remainder as a lossless section; decode
   runs K3 and K4;
+- flag 2 ("v3", ``Config.hybrid_fused_pack``): the same cf blob with its
+  chunks in tile-major order, written by the fused transform+pack kernel
+  K10 once a base-plane count is known for the shape (the first stream of
+  a shape rides flag 1 and primes it); decode runs K11;
 - flag 0: one lossless section of all symbols (kernels K7 and K8 for the
   front end of a 2D or 3D field): the path of lossless=BFX, and the
   fallback when a chunk needs more than 16 bits or the shape fails the
@@ -142,6 +146,46 @@ def _hybrid_v2_ok(padded, config: Config) -> bool:
     )
 
 
+def _v3_params(config: Config, padded):
+    """(K, E, C) of the fused flag-2 path; K is None while no base-plane
+    count is known: an explicit Config.bfp_base_planes, else the sticky
+    per-shape cache that the flag-1 serializer fills (the first stream of a
+    shape rides flag 1 and primes it, every later one fuses)."""
+    C = padded[-1] // 32
+    E = int(getattr(config, "bfp_resid_planes", 0) or _bfp.E_DEFAULT)
+    n_cf = int(np.prod(padded))
+    K_cfg = int(getattr(config, "bfp_base_planes", 0) or 0)
+    if K_cfg:
+        return K_cfg, E, C
+    # the flag-1 serializer keys the cache by its own chunk size, not by
+    # C = Z/32 (Z = 768: 8 against 24), so look under both; a K chosen for
+    # another chunk size costs ratio only, the serializer's cw_max check
+    # guards the stream
+    for key in (("v2", n_cf, E, C, 0),
+                ("v2", n_cf, E, _pick_v2_chunk(padded, config), 0)):
+        ent = _bfp._K_CACHE.get(key)
+        if ent:
+            return int(ent[0]), E, C
+    return None, E, C
+
+
+def _hybrid_v3_ok(padded, config: Config) -> bool:
+    """Gate of the fused transform+pack front end (the JAX gate without its
+    TPU term): asked for, the (8, 128, Z) tile = superblock scheme fits,
+    and a base-plane count K >= 1 with K + E <= 16 is already known."""
+    if not (
+        bool(getattr(config, "hybrid_fused_pack", False))
+        and config.lossless == lossless_type.BFP
+        and bool(config.hybrid_level_grouping)
+        and not int(getattr(config, "bfp_chunk", 0) or 0)
+        and not int(getattr(config, "bfp_sb_blocks", 0) or 0)
+        and Hy.v3_ok_shape(padded)
+    ):
+        return False
+    K, E, _ = _v3_params(config, padded)
+    return K is not None and K >= 1 and 1 <= E <= 15 and K + E <= 16
+
+
 def _edge_pad(v, padded):
     for d, (s, p) in enumerate(zip(v.shape, padded)):
         if p > s:
@@ -167,6 +211,26 @@ def _decompress_core_hybrid_v2(zz_rows, rem_sym, q: float, shape, padded,
     rem_dec = (rem_sym.to(torch.float32) * q).reshape(rem_hier.shape)
     rem = recompose(rem_dec, rem_hier, orthogonal=False).contiguous()
     out = Hy.local_inverse_fused_v2(zz_rows.reshape(padded), rem, q, nl)
+    return out[tuple(slice(0, s) for s in shape)]
+
+
+def _compress_core_hybrid_v3(v, q: float, padded, nl: int, rem_hier, K: int,
+                             E: int):
+    """Fused front end: (base, resid [static-cap layout], cw (NSB, 1024)
+    int32 [tile-major widths], rem_sym (n_rem,) int32)."""
+    v = _edge_pad(v, padded).contiguous()
+    inv_q = _inv_q(q)
+    base, resid, cw, rem = Hy.local_transform_pack_v3(v, inv_q, nl, K, E)
+    rem_dec = decompose(rem, rem_hier, orthogonal=False)
+    return base, resid, cw, Hy.quantize(rem_dec, inv_q).reshape(-1)
+
+
+def _decompress_core_hybrid_v3(base, crl, resid, rem_sym, q: float, shape,
+                               padded, nl: int, rem_hier, K: int, E: int):
+    q = _f32(q)
+    rem_dec = (rem_sym.to(torch.float32) * q).reshape(rem_hier.shape)
+    rem = recompose(rem_dec, rem_hier, orthogonal=False).contiguous()
+    out = Hy.unpack_inverse_v3(base, crl, resid, rem, q, nl, K, E, padded)
     return out[tuple(slice(0, s) for s in shape)]
 
 
@@ -239,6 +303,13 @@ def _dispatch_subdomain(v, hier, config: Config, abs_tol: float):
     rem_hier = get_hierarchy(Hy.remainder_shape(padded, nl), hier.dtype, None,
                              config)
     q = _hybrid_quantizer(abs_tol, Hy.hybrid_l_total(padded, nl, rem_hier))
+    if _hybrid_v3_ok(padded, config):
+        K, E, _ = _v3_params(config, padded)
+        base, resid, cw, rem_sym = _compress_core_hybrid_v3(
+            v, q, padded, nl, rem_hier, K, E)
+        rem_state = _raw_encode_device(rem_sym, config)
+        return ("hybrid_v3", (base, resid, cw, rem_state, v, q, padded, nl,
+                              rem_hier, K, E))
     if _hybrid_v2_ok(padded, config):
         C = _pick_v2_chunk(padded, config)
         pay, cw, rem_sym = _compress_core_hybrid_v2(v, q, padded, nl,
@@ -299,7 +370,52 @@ def _serialize_hybrid_v2(st, config: Config) -> list:
             + cf_parts + _raw_section_parts(*rem_state))
 
 
+def _serialize_hybrid_v3(st, config: Config) -> list:
+    """Flag byte 2, the cf stream as a BFP5 blob with tile-major chunks
+    (its device planes in the static-cap layout), the remainder as a
+    lossless section. A chunk wider than K + E (a stale sticky K: the
+    tolerance tightened on a primed shape; or a code over 16 bits) makes
+    the packed planes unusable: where the flag-1 front end takes the shape
+    its serializer re-chooses K from fresh widths, refreshes the cache, so
+    the next stream fuses again, and keeps flag 1 or drops to flag 0 on a
+    true u16 overflow; elsewhere the stream is flag 0."""
+    (base, resid, cw, rem_state, v, q, padded, nl, rem_hier, K, E) = st
+    if int(cw.max()) > K + E:
+        if _hybrid_v2_ok(padded, config):
+            C2 = _pick_v2_chunk(padded, config)
+            pay, cw2, _ = _compress_core_hybrid_v2(v, q, padded, nl,
+                                                   rem_hier, C2)
+            # the remainder was encoded for this same quantizer already
+            return _serialize_hybrid_v2(
+                (pay, cw2, rem_state, v, q, padded, nl, rem_hier, C2), config)
+        sym = _compress_core_hybrid(v, q, padded, nl, rem_hier,
+                                    bool(config.hybrid_level_grouping))
+        return _flag0_parts(*_raw_encode_device(sym, config))
+    n_cf = int(np.prod(padded))
+    Z = padded[-1]
+    crl = (cw.reshape(-1) - K).clamp(0, E)
+    cf_parts = _bfp.serialize_prepared_parts(n_cf, K, E, 32 * Z, Z // 32, crl,
+                                             base, resid, 0, static_cap=True)
+    return ([_EMPTY_OUTLIERS + struct.pack("<B", 2)
+             + struct.pack("<Q", parts_size(cf_parts))]
+            + cf_parts + _raw_section_parts(*rem_state))
+
+
+def _sections_wire_minor(sections) -> int:
+    """The least minor file version the payload needs: 1 (file 2.1) only
+    when a flag-2 section was written, so 2.0 readers go on parsing every
+    stream they can decode."""
+    off = len(_EMPTY_OUTLIERS)
+    for sec in sections:
+        first = bytes(sec[0])
+        if len(first) > off and first[off] == 2:
+            return 1
+    return 0
+
+
 def _serialize_subdomain(state, config: Config) -> list:
+    if state[0] == "hybrid_v3":
+        return _serialize_hybrid_v3(state[1], config)
     if state[0] == "hybrid_v2":
         return _serialize_hybrid_v2(state[1], config)
     return _flag0_parts(*state[1])
@@ -349,9 +465,6 @@ def _check_slice(s: float, config: Config, dtype) -> None:
               "ROADMAP queue 1 item 11")
     if config.adjust_shape:
         _todo("shape adjustment on compress", "ROADMAP queue 1 item 9")
-    if config.hybrid_fused_pack:
-        _todo("the fused transform+pack front end (flag 2, kernels K10/K11)",
-              "ROADMAP queue 2")
 
 
 def compress(data, tol: float, s: float = math.inf,
@@ -393,13 +506,14 @@ def compress(data, tol: float, s: float = math.inf,
             if norm == 0.0:
                 norm = float(np.finfo(np.float32).eps)
         local_tol = calc_local_abs_tol(mode, norm, tol, s, S)
-        payload = []
+        payload, sections = [], []
         for i in range(S):
             hier = get_hierarchy(dd.subdomain_shape(i), np.float32, None,
                                  config)
             state = _dispatch_subdomain(v[dd.subdomain_slices(i)], hier,
                                         config, local_tol)
             sec = _serialize_subdomain(state, config)
+            sections.append(sec)
             payload += [struct.pack("<Q", parts_size(sec))] + sec
         var_sizes = ()
         if (dd.domain_decomposed and config.domain_decomposition
@@ -430,6 +544,7 @@ def compress(data, tol: float, s: float = math.inf,
             huff_block_size=config.huff_block_size,
             block_delta_block_size=config.block_delta_block_size,
             nlocal=max(1, min(3, int(config.num_local_refactoring_level))),
+            wire_minor=_sections_wire_minor(sections),
         )
         blob = join([meta.serialize()] + payload)
         t_total.end()
@@ -454,9 +569,6 @@ def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
     pos += _skip_outliers(blob, pos)
     (flag,) = struct.unpack_from("<B", blob, pos)
     pos += 1
-    if flag == 2:
-        _todo("hybrid flag-2 streams (fused v3, kernel K11)",
-              "ROADMAP queue 2")
     if flag > 2:
         raise FormatError(f"unknown hybrid front-end flag {flag}")
     nl = max(1, min(3, int(meta.nlocal) or 1))
@@ -472,20 +584,33 @@ def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
                               f"expected {expected}")
         return _decompress_core_hybrid(sym, q, hier.shape, padded, nl,
                                        rem_hier, bool(meta.hybrid_grouping))
+    vtag = "v3" if flag == 2 else "v2"
     (cf_len,) = struct.unpack_from("<Q", blob, pos)
     pos += 8
     base, crl, rbuf, (n_cf, K, E, sb, C), _ = _bfp.deserialize_prepared(
-        blob, pos, device)
+        blob, pos, device, static_cap=flag == 2)
     pos += cf_len
     if n_cf != int(np.prod(padded)):
-        raise FormatError(f"hybrid-v2 cf stream has {n_cf} symbols, "
+        raise FormatError(f"hybrid-{vtag} cf stream has {n_cf} symbols, "
                           f"expected {int(np.prod(padded))}")
     if K + E > 16 or padded[-1] % (C * 32):
-        raise FormatError(f"hybrid-v2 cf stream geometry K={K} E={E} C={C}")
+        raise FormatError(f"hybrid-{vtag} cf stream geometry K={K} E={E} "
+                          f"C={C}")
+    if flag == 2 and not (Hy.v3_ok_shape(padded) and sb == 32 * padded[-1]
+                          and C == padded[-1] // 32):
+        # flag 2 is defined on the tile = superblock scheme only
+        raise FormatError(f"hybrid-v3 cf stream geometry (sb={sb}, C={C}, "
+                          f"K={K}, E={E}) does not match the v3 scheme for "
+                          f"domain {padded}")
     rem_sym, _ = lossless_decompress(blob, pos, device)
     if int(rem_sym.shape[0]) != int(np.prod(rem_shape)):
-        raise FormatError(f"hybrid-v2 rem stream has {int(rem_sym.shape[0])}"
-                          f" symbols, expected {int(np.prod(rem_shape))}")
+        raise FormatError(f"hybrid-{vtag} rem stream has "
+                          f"{int(rem_sym.shape[0])} symbols, expected "
+                          f"{int(np.prod(rem_shape))}")
+    if flag == 2:
+        return _decompress_core_hybrid_v3(
+            base, crl.reshape(-1, Hy.V3_SBC), rbuf, rem_sym, q, hier.shape,
+            padded, nl, rem_hier, K, E)
     zz_rows = _bfp.decode_core_zz(base, crl, rbuf, K, E, sb, n_cf // 32, C)
     return _decompress_core_hybrid_v2(zz_rows, rem_sym, q, hier.shape,
                                       padded, nl, rem_hier)

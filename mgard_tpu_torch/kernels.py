@@ -7,9 +7,10 @@ headers, so a build takes seconds). The library goes to ``build/kernels/``
 at the root of the checkout, named by a hash of the sources and flags, so a
 changed source builds anew and an unchanged one is reused.
 
-Each C entry point launches its kernel (for K5/K6 a short chain of kernels)
-on the stream it is given and returns ``cudaGetLastError()``; ``launch``
-raises on a nonzero code and only then counts the launch in ``LAUNCHES``.
+Each C entry point launches its kernel (for K5/K6 and K10 a short chain of
+kernels) on the stream it is given and returns ``cudaGetLastError()``;
+``launch`` raises on a nonzero code and only then counts the launch in
+``LAUNCHES``.
 Nothing here runs on import, and nothing falls back: a CUDA tensor either
 reaches its kernel or raises.
 """
@@ -55,6 +56,12 @@ _SIGNATURES = {
     "hybrid_inv": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
     # v, exp, planes, emax, esq, m, B, stream
     "bitplane_encode": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # v, inv_q, pay (scratch), rank (scratch), base, resid, cw, rem, X, Y, Z,
+    # nl, K, E, stream
+    "hybrid_pack_v3": [_P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P],
+    # base, crl, resid, rem, q, out, X, Y, Z, nl, K, E, stream
+    "hybrid_unpack_v3": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 # Launch counts per kernel, bumped only where a kernel was launched.

@@ -90,6 +90,32 @@ def _plan_offsets(cnt_c, C: int):
     return rband, woff, sb_off, sb_off[-1] + tot[-1]
 
 
+def _static_plan(NSB: int, E: int, sb: int, C: int, device):
+    """(rband, woff, sb_off) of the static-cap layout (the fused flag-2
+    front end): superblock i owns CAP = E*sb/128 rows at row i*CAP, and
+    band (plane j, slot b) the full BPR = sbc/128 rows at (j*C + b)*BPR
+    inside it, whatever the widths."""
+    BPR = (sb // C) // LANES
+    rband = torch.full((NSB, E), BPR, dtype=_I32, device=device)
+    woff = (torch.arange(E, dtype=_I32, device=device) * (C * BPR)
+            ).repeat(NSB, 1)
+    sb_off = torch.arange(NSB, dtype=_I32, device=device) * (E * (sb // LANES))
+    return rband, woff, sb_off
+
+
+def _zz_plan(crl, E: int, sb: int, C: int, static_cap: bool):
+    """Sort plan and band offsets of a prepared-payload stream: (rank, cnt,
+    rband, woff, sb_off, resid_rows, alloc_rows)."""
+    NSB = crl.shape[0] * C // sb
+    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sb // C), E)
+    CAP = E * (sb // LANES)
+    if static_cap:
+        rband, woff, sb_off = _static_plan(NSB, E, sb, C, crl.device)
+        return rank_c, cnt_c, rband, woff, sb_off, NSB * CAP, NSB * CAP
+    rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
+    return rank_c, cnt_c, rband, woff, sb_off, resid_rows, (NSB + 1) * CAP
+
+
 # ----------------------------------------------------------------------
 # K2 / K3: plain versions and kernel wrappers
 # ----------------------------------------------------------------------
@@ -285,29 +311,26 @@ def decode_core(base4d, crl, resid2d, exc_ids, exc_blocks, K: int, E: int,
     return sym_rows.reshape(NB * BS)
 
 
-def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int, C: int):
+def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int, C: int,
+                   static_cap: bool = False):
     """Prepared-payload encode (hybrid v2 cf stream): payload_rows (NC, 32C)
     int16 u16 zigzag codes, grouped and exception-free; crl (NC,) int32.
-    Returns (base, resid2d, resid_rows)."""
-    NC = payload_rows.shape[0]
-    NSB = NC * C // sb
-    sbc = sb // C
-    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
-    rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
-    alloc_rows = (NSB + 1) * E * (sb // LANES)
+    Returns (base, resid2d, resid_rows). static_cap writes the residual
+    planes in the static-cap layout (_static_plan), the device layout of
+    the fused flag-2 front end; resid2d then has exactly NSB*CAP rows."""
+    rank_c, _, rband, woff, sb_off, resid_rows, alloc_rows = _zz_plan(
+        crl, E, sb, C, static_cap)
     base, resid2d = encode_bands(payload_rows, rank_c, woff, rband, sb_off,
                                  K, E, sb, C, alloc_rows)
     return base, resid2d, resid_rows
 
 
 def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int, NB: int,
-                   C: int):
+                   C: int, static_cap: bool = False):
     """Inverse of encode_core_zz -> (NC, 32C) int16 u16 zigzag rows in
     natural order (the hybrid-v2 inverse consumes them directly)."""
-    NSB = NB // sb
-    sbc = sb // C
-    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
-    rband, woff, sb_off, _ = _plan_offsets(cnt_c, C)
+    rank_c, cnt_c, rband, woff, sb_off, _, _ = _zz_plan(crl, E, sb, C,
+                                                        static_cap)
     return decode_bands(base4d, resid2d, rank_c, woff, rband, sb_off, cnt_c,
                         K, E, sb, C, wide=False)
 
@@ -316,14 +339,25 @@ def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int, NB: int,
 # Wire compaction (host side): map between the device row-padded band
 # layout and the compact valid-words wire layout, from the sidecar alone
 # ----------------------------------------------------------------------
-def _band_geometry(crl_h: np.ndarray, E: int, C: int, sb: int):
+def _band_geometry(crl_h: np.ndarray, E: int, C: int, sb: int,
+                   static_cap: bool = False):
     """Per-(superblock, plane) valid word count cnt, band row count rband,
     global band start row, and total padded rows. Counts are
-    permutation-invariant, so the sidecar alone determines them."""
+    permutation-invariant, so the sidecar alone determines them.
+    static_cap describes the device layout of the fused flag-2 front end
+    (_static_plan); the wire bytes are the same either way, since
+    compaction strips the padding."""
     sbc = sb // C
     NSB = (crl_h.shape[0] * C) // sb
     crl2 = crl_h.reshape(NSB, sbc)
     cnt = (crl2[:, None, :] > np.arange(E)[None, :, None]).sum(2)
+    if static_cap:
+        CAP = E * (sb // LANES)
+        rband = np.full_like(cnt, sbc // LANES)
+        rows_p = rband * C
+        band_start = (np.arange(NSB)[:, None] * CAP
+                      + np.cumsum(rows_p, axis=1) - rows_p)
+        return cnt, rband, band_start, NSB * CAP
     rband = -(-cnt // LANES)
     rows_p = (rband * C).reshape(-1)
     ends = np.cumsum(rows_p)
@@ -351,13 +385,15 @@ def _compact_sb(out: np.ndarray, resid_flat: np.ndarray, cnt, rband,
 
 
 def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
-                resid2d, resid_rows, exc_cnt: int) -> list:
+                resid2d, resid_rows, exc_cnt: int,
+                static_cap: bool = False) -> list:
     """BFP5 blob as bytesink parts: header, nibble sidecar, base planes and
     one residual Fill per superblock (band compaction writes straight into
-    the final blob)."""
+    the final blob). Under static_cap the whole residual buffer comes to
+    the host: every superblock's slot holds valid words."""
     from ..utils.bytesink import Fill
 
-    rows_i = int(resid_rows)
+    rows_i = resid2d.shape[0] if static_cap else int(resid_rows)
     crl_h = crl.cpu().numpy()
     rl_h = crl_h.astype(np.uint8)
     if rl_h.shape[0] % 2:
@@ -367,7 +403,7 @@ def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
               else np.zeros(0, "<u4"))
     resid_flat = device_get_prefix(resid2d.reshape(-1),
                                    rows_i * LANES).view("<u4")
-    cnt, rband, band_start, _ = _band_geometry(crl_h, E, C, sb)
+    cnt, rband, band_start, _ = _band_geometry(crl_h, E, C, sb, static_cap)
     words = int(cnt.sum()) * C
     head = struct.pack(_HDR, _MAGIC, n, words, K, E, sb, C, exc_cnt)
     parts = [head, nib.astype(np.uint8), base_h]
@@ -380,20 +416,25 @@ def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
 
 
 def serialize_prepared_parts(n: int, K: int, E: int, sb: int, C: int, crl,
-                             base, resid2d, resid_rows) -> list:
-    """encode_core_zz result as bytesink parts (exception-free blob)."""
-    return _blob_parts(n, K, E, sb, C, crl, base, resid2d, resid_rows, 0)
+                             base, resid2d, resid_rows,
+                             static_cap: bool = False) -> list:
+    """encode_core_zz result as bytesink parts (exception-free blob);
+    static_cap names the layout of resid2d, the bytes do not depend on it."""
+    return _blob_parts(n, K, E, sb, C, crl, base, resid2d, resid_rows, 0,
+                       static_cap)
 
 
 def _expand_resid(compact: np.ndarray, crl_h: np.ndarray, E: int, C: int,
-                  sb: int) -> np.ndarray:
-    """Inverse of the wire compaction -> (rows + CAP, 128) uint32."""
-    cnt, rband, band_start, rows = _band_geometry(crl_h, E, C, sb)
+                  sb: int, static_cap: bool = False) -> np.ndarray:
+    """Inverse of the wire compaction -> (rows + CAP, 128) uint32, or the
+    NSB*CAP rows of the static-cap layout."""
+    cnt, rband, band_start, rows = _band_geometry(crl_h, E, C, sb,
+                                                  static_cap)
     total = int(cnt.sum()) * C
     if compact.shape[0] != total:
         raise ValueError(f"BFP resid stream has {compact.shape[0]} words, "
                          f"sidecar implies {total}")
-    CAP = E * (sb // LANES)
+    CAP = 0 if static_cap else E * (sb // LANES)
     buf = np.zeros(((rows + CAP) * LANES,), np.uint32)
     o = 0
     for s in range(cnt.shape[0]):
@@ -446,9 +487,11 @@ def _to_dev(a: np.ndarray, device):
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
 
 
-def deserialize_prepared(data: bytes, offset: int = 0, device="cpu"):
+def deserialize_prepared(data: bytes, offset: int = 0, device="cpu",
+                         static_cap: bool = False):
     """Parse an exception-free BFP5 blob into tensors for decode_core_zz.
-    Returns (base, crl, resid2d, (n, K, E, sb, C), consumed)."""
+    Returns (base, crl, resid2d, (n, K, E, sb, C), consumed). static_cap
+    expands the residual words into the static-cap layout."""
     geom, rl, base, p = _parse(data, offset)
     if geom["cnt"]:
         raise ValueError(
@@ -457,7 +500,8 @@ def deserialize_prepared(data: bytes, offset: int = 0, device="cpu"):
         raise ValueError("empty prepared-payload blob")
     resid = np.frombuffer(data, "<u4", geom["resid_words"], p)
     p += 4 * geom["resid_words"]
-    rbuf = _expand_resid(resid, rl, geom["E"], geom["C"], geom["sb"])
+    rbuf = _expand_resid(resid, rl, geom["E"], geom["C"], geom["sb"],
+                         static_cap)
     return (_to_dev(base, device), _to_dev(rl, device), _to_dev(rbuf, device),
             tuple(geom[k] for k in ("n", "K", "E", "sb", "C")), p - offset)
 

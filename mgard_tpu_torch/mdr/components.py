@@ -8,8 +8,8 @@
 * Error estimators (reference: MDR-X/ErrorEstimator/): per-level
   per-bitplane error tables -> a global bound.
 * GreedyBasedSizeInterpreter (reference: MDR-X/SizeInterpreter/): per-level
-  bitplane counts by error reduction per byte until the bound meets the
-  tolerance.
+  bitplane counts by error reduction per byte, in steps of one or more
+  planes, until the bound meets the tolerance.
 """
 
 from __future__ import annotations
@@ -193,31 +193,49 @@ def estimate_error(meta, counts: Sequence[int], s: float) -> float:
     return total / math.sqrt(meta.total_num_elems)
 
 
+def best_step(lm, b: int, B: int, sign_rows: int, inf_norm: bool):
+    """A level's best next step from b magnitude planes held: (error
+    reduction per byte, planes in the step), the maximum over k of
+    (err[b] - err[b+k]) / bytes(planes b..b+k-1), the sign plane's bytes
+    added when b == 0; the shortest step wins a tie. A plane that reduces
+    nothing by itself (the first magnitude plane is empty: the level
+    exponent keeps the fixed point under 2^(B-1)) is thus spanned by a
+    longer step, not waited out."""
+    err = lm.err_max if inf_norm else lm.err_sq
+    cost = lm.plane_sizes[0] if (b == 0 and sign_rows) else 0
+    best_gain, best_k = -math.inf, 1
+    for k in range(1, B - b + 1):
+        cost += lm.plane_sizes[b + k - 1 + sign_rows]
+        g = float(err[b] - err[b + k]) / max(cost, 1)
+        if g > best_gain:
+            best_gain, best_k = g, k
+    return best_gain, best_k
+
+
 def interpret_retrieve_size(meta, tol: float, s: float) -> List[int]:
     """Greedy (error reduction / byte) plane selection: per-level magnitude
-    plane counts whose estimated global error is <= tol (or every plane)."""
+    plane counts whose estimated global error is <= tol (or every plane).
+    Each level offers its best step of one or more planes (best_step), and
+    taking a candidate takes the whole step. The JAX package offers one
+    plane per level, ranked by that plane alone, and so reads each level to
+    its last plane before it opens the next; its plans meet the same bound
+    with more bytes."""
     L = len(meta.levels)
     counts = [0] * L
     B = meta.number_bitplanes
-
     sr = getattr(meta, "sign_rows", 1)
+    inf_norm = math.isinf(s)
 
-    def gain(l, b):
-        lm = meta.levels[l]
-        if math.isinf(s):
-            red = float(lm.err_max[b] - lm.err_max[b + 1])
-        else:
-            red = float(lm.err_sq[b] - lm.err_sq[b + 1])
-        cost = lm.plane_sizes[b + sr]  # magnitude plane b's stored row
-        if b == 0 and sr:
-            cost += lm.plane_sizes[0]  # first plane pulls the sign plane too
-        return red / max(cost, 1)
+    def push(l):
+        g, k = best_step(meta.levels[l], counts[l], B, sr, inf_norm)
+        heapq.heappush(heap, (-g, l, k))
 
-    heap = [(-gain(l, 0), l) for l in range(L)]
-    heapq.heapify(heap)
+    heap = []
+    for l in range(L):
+        push(l)
     while heap and estimate_error(meta, counts, s) > tol:
-        _, l = heapq.heappop(heap)
-        counts[l] += 1
+        _, l, k = heapq.heappop(heap)
+        counts[l] += k
         if counts[l] < B:
-            heapq.heappush(heap, (-gain(l, counts[l]), l))
+            push(l)
     return counts

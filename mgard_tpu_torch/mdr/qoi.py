@@ -17,7 +17,7 @@ from typing import List, Sequence
 import torch
 
 from .api import MDReconstruct, RefactoredData, RefactoredMetadata
-from .components import estimate_error
+from .components import best_step, estimate_error
 
 
 class VTotQoI:
@@ -68,8 +68,9 @@ class VTotQoI:
 
 def plan_joint_retrieval(metas: Sequence[RefactoredMetadata], qoi_tol: float,
                          qoi=None, s: float = math.inf) -> List[List[int]]:
-    """Jointly greedy plan across (variable, level, bitplane) increments so
-    the QoI bound over per-variable errors meets qoi_tol."""
+    """Jointly greedy plan across (variable, level) steps of one or more
+    bitplanes (components.best_step) so the QoI bound over per-variable
+    errors meets qoi_tol."""
     qoi = qoi or VTotQoI()
     V = len(metas)
     counts = [[0] * len(m.levels) for m in metas]
@@ -78,28 +79,22 @@ def plan_joint_retrieval(metas: Sequence[RefactoredMetadata], qoi_tol: float,
     def var_err(v):
         return estimate_error(metas[v], counts[v], s)
 
-    def gain(v, l, b):
-        # rank increments by the metric the stopping bound uses
-        lm = metas[v].levels[l]
-        sr = getattr(metas[v], "sign_rows", 1)
-        if math.isinf(s):
-            red = float(lm.err_max[b] - lm.err_max[b + 1])
-        else:
-            red = float(lm.err_sq[b] - lm.err_sq[b + 1])
-        cost = lm.plane_sizes[b + sr] + (
-            lm.plane_sizes[0] if (b == 0 and sr) else 0
-        )
-        return red / max(cost, 1)
+    def push(v, l):
+        # rank steps by the metric the stopping bound uses
+        m = metas[v]
+        g, k = best_step(m.levels[l], counts[v][l], B,
+                         getattr(m, "sign_rows", 1), math.isinf(s))
+        heapq.heappush(heap, (-g, v, l, k))
 
     heap = []
     for v, m in enumerate(metas):
         for l in range(len(m.levels)):
-            heapq.heappush(heap, (-gain(v, l, 0), v, l))
+            push(v, l)
     while heap and qoi.bound([var_err(v) for v in range(V)]) > qoi_tol:
-        _, v, l = heapq.heappop(heap)
-        counts[v][l] += 1
+        _, v, l, k = heapq.heappop(heap)
+        counts[v][l] += k
         if counts[v][l] < B:
-            heapq.heappush(heap, (-gain(v, l, counts[v][l]), v, l))
+            push(v, l)
     return counts
 
 

@@ -13,11 +13,13 @@ multiply-multiply-add per coefficient position. They compute ``wl*a + wr*b``
 and ``v - w`` as separate IEEE float32 operations, exactly as the CUDA
 kernels do, so kernel and plain version agree bit for bit on the card.
 
-Four CUDA kernels carry the front end on the GPU: the flag-1 ("v2") pair
+Six CUDA kernels carry the front end on the GPU: the flag-1 ("v2") pair
 ``local_transform_fused_v2`` (K1, csrc/hybrid_v2.cu) and
-``local_inverse_fused_v2`` (K4), and the flag-0 pair
-``local_transform_fused`` (K7, csrc/hybrid.cu) and ``local_inverse_fused``
-(K8) for 2D and 3D fields. Each wrapper takes the plain version for a
+``local_inverse_fused_v2`` (K4), the fused transform+pack flag-2 ("v3")
+pair ``local_transform_pack_v3`` (K10, csrc/hybrid_v3.cu) and
+``unpack_inverse_v3`` (K11), and the flag-0 pair ``local_transform_fused``
+(K7, csrc/hybrid.cu) and ``local_inverse_fused`` (K8) for 2D and 3D
+fields. Each wrapper takes the plain version for a
 tensor on the CPU and launches its kernel for a tensor on a CUDA device.
 
 u16 payloads are carried as ``torch.int16`` tensors holding the u16 bit
@@ -320,6 +322,155 @@ def local_inverse_fused_v2(pay, rem, q: float, nl: int):
     kernels.launch("hybrid_inv_v2", pay.data_ptr(), rem.data_ptr(),
                    float(np.float32(q)), out.data_ptr(), X, Y, Z, nl,
                    kernels.stream(pay.device))
+    return out
+
+
+# ----------------------------------------------------------------------
+# The fused flag-2 ("v3") front end: the transform and the BFP pack in one
+# entry point. Each (8, 128, Z) tile of the field is one BFP superblock of
+# sbc = 1024 chunks (one (x, y) row of Z grouped symbols each, C = Z/32
+# blocks), chunks in tile-major order, residual planes in the static-cap
+# layout (lossless/bfp.py _static_plan).
+# ----------------------------------------------------------------------
+V3_SBC = 1024
+
+
+def _v3_geom(Z: int, E: int):
+    """(C, sb, sbc, rows per plane, CAP, BPR) of the tile = superblock
+    scheme: C blocks a chunk, sb blocks and sbc chunks a superblock, CAP
+    residual rows of 128 words a superblock, BPR rows a band."""
+    C = Z // 32
+    sb = 32 * Z
+    plane_rows = sb // 128
+    return C, sb, V3_SBC, plane_rows, E * plane_rows, V3_SBC // 128
+
+
+def v3_ok_shape(shape) -> bool:
+    """Shape gate of the fused scheme: 3D, (8, 128, Z) tiles with
+    128 | Z <= 1024, so one tile is exactly one superblock of 1024 chunks."""
+    if len(shape) != 3:
+        return False
+    X, Y, Z = shape
+    return X % 8 == 0 and Y % 128 == 0 and Z % 128 == 0 and 128 <= Z <= 1024
+
+
+def field_rows_tilemajor(pay3d):
+    """(X, Y, Z) payload -> (NC, Z) rows in tile-major chunk order: tiles of
+    (8, 128) leading positions in (gx, gy) row-major order, row-major
+    inside a tile."""
+    X, Y, Z = pay3d.shape
+    GX, GY = X // 8, Y // 128
+    return (pay3d.reshape(GX, 8, GY, 128, Z).permute(0, 2, 1, 3, 4)
+            .reshape(GX * GY * V3_SBC, Z))
+
+
+def rows_tilemajor_field(rows, shape):
+    """Inverse of field_rows_tilemajor."""
+    X, Y, Z = shape
+    GX, GY = X // 8, Y // 128
+    return (rows.reshape(GX, GY, 8, 128, Z).permute(0, 2, 1, 3, 4)
+            .reshape(X, Y, Z))
+
+
+def transform_pack_v3(v, inv_q: float, nl: int, K: int, E: int):
+    """Plain version of K10. Returns (base (NSB, K, C, 1024) int32 [sorted
+    chunk order], resid (NSB*CAP, 128) int32 [static-cap layout], cw (NSB,
+    1024) int32 [tile-major widths; one zigzag code over 16 bits sets all
+    1024 widths of its tile to 32 and the caller must fall back], rem)."""
+    from ..lossless import bfp
+
+    X, Y, Z = v.shape
+    C, sb, sbc, _, _, _ = _v3_geom(Z, E)
+    pay, cw_rm, rem = local_transform_v2(v, inv_q, nl, C)
+    GX, GY = X // 8, Y // 128
+    cw = (cw_rm.reshape(GX, 8, GY, 128).permute(0, 2, 1, 3)
+          .reshape(GX * GY, sbc))
+    over = (cw > 16).any(1, keepdim=True)
+    cw = torch.where(over, torch.full_like(cw, 32), cw)
+    crl = (cw - K).clamp(0, E).reshape(-1)
+    rows = field_rows_tilemajor(pay).contiguous()
+    base, resid, _ = bfp.encode_core_zz(rows, crl, K, E, sb, C,
+                                        static_cap=True)
+    return base, resid, cw, rem
+
+
+def unpack_inverse_v3_plain(base, crl, resid, rem, q: float, nl: int, K: int,
+                            E: int, shape):
+    """Plain version of K11: static-cap banded payload + crl (NSB, 1024)
+    + compact remainder -> float32 field of ``shape``."""
+    from ..lossless import bfp
+
+    Z = shape[-1]
+    C, sb, _, _, _, _ = _v3_geom(Z, E)
+    NB = int(np.prod(shape)) // 32
+    rows = bfp.decode_core_zz(base, crl.reshape(-1), resid, K, E, sb, NB, C,
+                              static_cap=True)
+    pay = rows_tilemajor_field(rows, shape).contiguous()
+    return local_inverse_v2(pay, rem, q, nl)
+
+
+def _v3_geometry(shape, nl: int, K: int, E: int):
+    if not v3_ok_shape(tuple(shape)):
+        raise ValueError(f"shape {tuple(shape)} fails the flag-2 gate")
+    if nl not in (1, 2, 3):
+        raise ValueError(f"num_levels must be 1..3, got {nl}")
+    if not (1 <= E <= 15 and K >= 0 and K + E <= 16):
+        raise ValueError(f"K={K}, E={E}: need 1 <= E <= 15 and K + E <= 16")
+    X, Y, Z = shape
+    return (X, Y, Z), remainder_shape(shape, nl), (X // 8) * (Y // 128)
+
+
+def local_transform_pack_v3(v, inv_q: float, nl: int, K: int, E: int):
+    """K10 wrapper (replaces mgard_tpu/ops/hybrid.py
+    local_transform_pack_v3): field -> banded BFP payload, same outputs as
+    transform_pack_v3. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel chain (widths, rank, pack)."""
+    (X, Y, Z), rem_shape, NSB = _v3_geometry(v.shape, nl, K, E)
+    if K < 1:
+        raise ValueError("the fused pack needs at least one base plane")
+    kernels.check_tensor("v", v, torch.float32, (X, Y, Z), v.device)
+    if v.device.type == "cpu":
+        return transform_pack_v3(v, inv_q, nl, K, E)
+    if v.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v.device}")
+    C, _, sbc, _, CAP, _ = _v3_geom(Z, E)
+    dev = v.device
+    # every word of base and resid is written by the pack pass
+    base = torch.empty((NSB, K, C, sbc), dtype=torch.int32, device=dev)
+    resid = torch.empty((NSB * CAP, 128), dtype=torch.int32, device=dev)
+    cw = torch.empty((NSB, sbc), dtype=torch.int32, device=dev)
+    rem = torch.empty(rem_shape, dtype=torch.float32, device=dev)
+    pay = torch.empty((NSB * sbc, Z), dtype=torch.int16, device=dev)
+    rank = torch.empty((NSB, sbc), dtype=torch.int32, device=dev)
+    kernels.launch("hybrid_pack_v3", v.data_ptr(), float(np.float32(inv_q)),
+                   pay.data_ptr(), rank.data_ptr(), base.data_ptr(),
+                   resid.data_ptr(), cw.data_ptr(), rem.data_ptr(), X, Y, Z,
+                   nl, K, E, kernels.stream(dev))
+    return base, resid, cw, rem
+
+
+def unpack_inverse_v3(base, crl, resid, rem, q: float, nl: int, K: int,
+                      E: int, shape):
+    """K11 wrapper (replaces mgard_tpu/ops/hybrid.py unpack_inverse_v3):
+    same output as unpack_inverse_v3_plain. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel."""
+    (X, Y, Z), rem_shape, NSB = _v3_geometry(shape, nl, K, E)
+    C, _, sbc, _, CAP, _ = _v3_geom(Z, E)
+    dev = base.device
+    kernels.check_tensor("base", base, torch.int32,
+                         (NSB, max(K, 1), C, sbc), dev)
+    kernels.check_tensor("crl", crl, torch.int32, (NSB, sbc), dev)
+    kernels.check_tensor("resid", resid, torch.int32, (NSB * CAP, 128), dev)
+    kernels.check_tensor("rem", rem, torch.float32, rem_shape, dev)
+    if dev.type == "cpu":
+        return unpack_inverse_v3_plain(base, crl, resid, rem, q, nl, K, E,
+                                       (X, Y, Z))
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    out = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    kernels.launch("hybrid_unpack_v3", base.data_ptr(), crl.data_ptr(),
+                   resid.data_ptr(), rem.data_ptr(), float(np.float32(q)),
+                   out.data_ptr(), X, Y, Z, nl, K, E, kernels.stream(dev))
     return out
 
 

@@ -102,6 +102,7 @@ def _asdict_by_value(cfg):
     dict(bfp_chunk=8, bfp_sb_blocks=8192, bfp_base_planes=5,
          bfp_resid_planes=7, num_local_refactoring_level=2,
          hybrid_level_grouping=False, domain_decomposition_sizes=[3, 4]),
+    dict(hybrid_fused_pack=True, bfp_base_planes=6),
 ])
 def test_config_from_jax_roundtrip(knobs):
     jc = mgard_tpu.Config(**knobs)

@@ -43,6 +43,49 @@ def test_hybrid_wrappers_take_plain_path_on_cpu():
     assert torch.equal(out, TH.local_inverse_v2(got[0], got[2], 0.01, 3))
 
 
+@pytest.mark.parametrize("shape,K,E", [((8, 128, 128), 4, 8),
+                                       ((16, 128, 256), 1, 15)])
+def test_fused_pack_wrappers_take_plain_path_on_cpu(shape, K, E):
+    """K10/K11: a CPU tensor runs the plain versions and launches nothing
+    (the fixture checks the counts)."""
+    v = _v(shape) * 0.01
+    got = TH.local_transform_pack_v3(v, 100.0, 3, K, E)
+    ref = TH.transform_pack_v3(v, 100.0, 3, K, E)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    base, resid, cw, rem = got
+    assert int(cw.max()) <= K + E
+    crl = (cw - K).clamp(0, E)
+    out = TH.unpack_inverse_v3(base, crl, resid, rem, 0.01, 3, K, E, shape)
+    assert torch.equal(out, TH.unpack_inverse_v3_plain(
+        base, crl, resid, rem, 0.01, 3, K, E, shape))
+    assert float((out - v).abs().max()) <= 0.01 * 5
+
+
+def test_fused_pack_wrappers_ask_for_cuda_and_never_fall_back(monkeypatch):
+    """A CUDA request without CUDA raises at the entry point; a tensor that
+    is neither on the CPU nor on CUDA finds no kernel and no plain
+    fallback."""
+    import mgard_tpu_torch as M
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = M.Config()
+    cfg.hybrid_fused_pack = True
+    cfg.bfp_base_planes = 6
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.compress(_v((16, 128, 256)).numpy(), 1e-3, config=cfg)
+    shape = (8, 128, 128)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        TH.local_transform_pack_v3(torch.empty(shape, **meta), 1.0, 3, 4, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        TH.unpack_inverse_v3(
+            torch.empty((1, 4, 4, 1024), dtype=torch.int32, **meta),
+            torch.empty((1, 1024), dtype=torch.int32, **meta),
+            torch.empty((8 * 32, 128), dtype=torch.int32, **meta),
+            torch.empty(TH.remainder_shape(shape, 3), **meta), 1.0, 3, 4, 8,
+            shape)
+
+
 @pytest.mark.parametrize("shape", [(64, 256), (16, 16, 128), (24, 40, 56)])
 def test_flag0_wrappers_take_plain_path_on_cpu(shape):
     v = _v(shape)
@@ -193,6 +236,22 @@ def test_cpu_compress_launches_nothing(monkeypatch):
     monkeypatch.setattr(TB, "_K_CACHE", {})
     v = _v((64, 64, 128)).numpy() * 0.01
     blob, st = M.compress(v, 1e-3, device="cpu")
+    out, st2 = M.decompress(blob, device="cpu")
+    assert st == 0 and st2 == 0
+    assert float((out - torch.from_numpy(v)).abs().max()) <= 1e-3
+
+
+def test_cpu_fused_compress_launches_nothing(monkeypatch):
+    """The fused flag-2 path on the CPU (the K10/K11 wrappers) runs the
+    plain versions only."""
+    import mgard_tpu_torch as M
+
+    monkeypatch.setattr(TB, "_K_CACHE", {})
+    cfg = M.Config()
+    cfg.hybrid_fused_pack = True
+    cfg.bfp_base_planes = 6
+    v = _v((16, 128, 256)).numpy() * 0.01
+    blob, st = M.compress(v, 1e-3, config=cfg, device="cpu")
     out, st2 = M.decompress(blob, device="cpu")
     assert st == 0 and st2 == 0
     assert float((out - torch.from_numpy(v)).abs().max()) <= 1e-3

@@ -41,6 +41,15 @@ def smooth(shape, seed=0):
     return v
 
 
+def _plan_bytes(metas, plan):
+    """Bytes a joint plan fetches from scratch."""
+    total = 0
+    for m, c in zip(metas, plan):
+        m.prev_used = []
+        total += TM.retrieve_size(m, c)
+    return total
+
+
 def _refactor_vars(seed0):
     cfg = M.Config()
     cfg.total_num_bitplanes = 12
@@ -87,8 +96,10 @@ def test_mdr_qoi_device_check_survives_corrupted_tables():
 
 
 def test_jax_variables_through_the_port_qoi():
-    """Variables refactored by the JAX package: the port's joint plan equals
-    the JAX package's, and the port's QoI reconstruction certifies it."""
+    """Variables refactored by the JAX package: the port's joint plan meets
+    the QoI bound with no more bytes than the JAX package's (the planners
+    diverge on purpose, ROADMAP queue 3: the port ranks steps of several
+    planes), and the port's QoI reconstruction certifies it."""
     jcfg = JConfig()
     jcfg.total_num_bitplanes = 12
     vs = [smooth(SHAPE, seed=20 + i) + 1.5 for i in range(3)]
@@ -97,8 +108,12 @@ def test_jax_variables_through_the_port_qoi():
     tmetas = [TA.RefactoredMetadata.deserialize(b)[0] for b in blobs]
     jmetas = [JA.RefactoredMetadata.deserialize(b)[0] for b in blobs]
     tol = 1e-2
-    assert plan_joint_retrieval(tmetas, tol) == \
-        JQ.plan_joint_retrieval(jmetas, tol)
+    plan = plan_joint_retrieval(tmetas, tol)
+    jplan = JQ.plan_joint_retrieval(jmetas, tol)
+    for p in (plan, jplan):
+        assert VTotQoI().bound([estimate_error(m, c, np.inf)
+                                for m, c in zip(tmetas, p)]) <= tol
+    assert _plan_bytes(tmetas, plan) <= _plan_bytes(tmetas, jplan)
     datas = [TA.RefactoredData(d.planes) for _, d in jpairs]
     vars_rec, vtot_rec, bound, _ = MDReconstructQoI(tmetas, datas, tol,
                                                     device=CPU)
@@ -127,10 +142,13 @@ def test_decomposed_mdr():
     out = TM.MDReconstructDecomposed(dmdr, plans, cfg, device=CPU)
     assert out.dtype == torch.float32 and tuple(out.shape) == v.shape
     assert float((out - torch.from_numpy(v)).abs().max()) <= 1e-2
-    # each subdomain's stream reconstructs in the JAX package too
-    for m, d, sl in zip(dmdr.metas, dmdr.datas, dmdr.subdomain_slices):
+    # each subdomain's stream reconstructs in the JAX package too, on the
+    # port's plan, which costs no more bytes than the JAX planner's
+    for m, d, sl, c in zip(dmdr.metas, dmdr.datas, dmdr.subdomain_slices,
+                           plans):
         jm, _ = JA.RefactoredMetadata.deserialize(m.serialize())
-        c = JM.MDRequest(jm, 1e-2)
+        assert _plan_bytes([m], [c]) <= _plan_bytes([m],
+                                                    [JM.MDRequest(jm, 1e-2)])
         rec = JM.MDReconstruct(jm, JA.RefactoredData(d.planes), c).data
         assert float(np.max(np.abs(rec - v[sl]))) <= 1e-2
 
