@@ -4,8 +4,8 @@
 
 Phases (each prints a line; any failure exits nonzero before the result):
   1. device: require CUDA; print the card's name and power limit;
-  2. build the CUDA kernels K1-K11 from mgard_tpu_torch/csrc with nvcc (one
-     process per source, in parallel);
+  2. build the CUDA kernels K1-K11 and the probes P1-P3 from
+     mgard_tpu_torch/csrc with nvcc (one process per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the
      512^3 geometries of the main path and of Hybrid+BFX (K7/K8 also at
      8192^2, and all at a few small geometries) and, for K9, at the 384^3
@@ -41,11 +41,34 @@ Phases (each prints a line; any failure exits nonzero before the result):
      and read just after (K10 and K11 launched, K1 and K4 not, K2 and K3
      once each, for the remainder section); then a tighter tolerance on the
      primed shape takes the stale-K fallback (flag 1, K refreshed) and the
-     stream after it fuses again.
+     stream after it fuses again;
+ 13. the layout probes P1-P3 (mgard_tpu_torch/probes.py): every variant at
+     the probe's own shape and at one production shape, called, compared
+     (max_abs_err 0) and timed here against its plain version and, where
+     there is one, the PyTorch call that computes the same; then one
+     counted run of the probes' own entry point (probes.run_all);
+ 14. the generic compress surface at full size, each run checking its bound
+     on the card and, for every call, the exact K2/K3 counts (one
+     pre-sorted bfp.encode_core section each way, at most one
+     exception-bucket re-run on a first compress): a 1D 2^20 float64
+     sinusoid at s=0, tol=1e-3 (MultiDim, the split/lerp/merge path,
+     orthogonal basis; the achieved error measured by ``norm``; K2/K3 in
+     their pre-sorted mode);
+ 15. a 5D (12,8,96,33,33) float32 field at s=inf, tol=1e-3 (falls back to
+     MultiDim), and at s=0 under a REL bound;
+ 16. a 257^3 float32 field on a stretched grid (``coords=``),
+     decomposition=MultiDim, at s=inf and s=0; and SingleDim at 129^3;
+ 17. a 256^3 float64 field at tol=1e-3: demoted (float32 payload, float64
+     header, K1-K4 launched, the bound held on the double data); and the
+     field scaled by 0.01 at tol=1e-9: native float64, not demoted;
+ 18. compress_roi at 128^3 with an explicit mask and with roi_mask=None:
+     error <= tol/16 inside the mask, <= tol outside;
+ 19. one small stream of each new kind written on the card and decoded on
+     the CPU, and the reverse.
 The second-to-last line is a JSON summary of the kernels: launches from the
 path each kernel belongs to (K1-K4 phase 4, K5-K8 phase 5, K9 phase 8,
-K10/K11 phase 12),
-times from phase 3, and each kernel's bound: the larger of the bytes it
+K10/K11 phase 12, the probe variants phase 13's counted run),
+times from phase 3 (probes: phase 13), and each kernel's bound: the larger of the bytes it
 must move over the card's 3.35 TB/s and its operations over 67 TOP/s (the
 H100 SXM data sheet's float32 rate; integer lane operations counted at the
 same rate). The last line is {"ok": true, "device": {...}}.
@@ -107,6 +130,15 @@ FUSED_PATH = ("hybrid_pack_v3", "hybrid_unpack_v3")
 # phase 12's second tolerance: chunks ~3 bits wider, still inside 16 bits
 # (at 1e-5 the 512^3 field's codes leave the u16 budget: flag 0)
 TOL_TIGHT = 1e-4
+PROBE_SOURCE = "mgard_tpu_torch/csrc/probes.cu"
+PROBE_REPLACES = {"dynwin": "scripts/probe_dynwin.py:61",
+                  "relayout": "scripts/probe_strided_dma.py:40",
+                  "relayout_rev": "scripts/probe_strided_dma.py:78",
+                  "u16": "scripts/probe_u16.py:42"}
+# Lane operations per 32-bit word moved (P1, P2) or per 32-symbol block
+# (P3), read off the kernels: an estimate, every variant is bound by bytes.
+PROBE_OPS = {"or": 6, "owner": 2, "direct": 2, "cpasync": 3, "row32": 5,
+             "row33": 5, "ballot": 32 * 58, "butterfly": 300}
 
 
 def phase(msg):
@@ -240,6 +272,386 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self.real)
+
+
+def timed(fn):
+    """fn() on the host clock, ending in a device sync: (result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def header(blob):
+    from mgard_tpu_torch.formats.metadata import Metadata
+
+    return Metadata.deserialize(blob)[0]
+
+
+def probe_phase(dev, kernels, rows, path_launches):
+    """Phase 13: P1-P3. Every variant's wrapper is called here on the
+    probes' inputs (probes.cases), held here against the plain version
+    (max_abs_err measured, must be 0) and timed here with CUDA events, as
+    is the one PyTorch call that computes the same function where there is
+    one; these launches compare and are not counted. Then one counted run
+    of the probes' entry point."""
+    from mgard_tpu_torch import probes as PR
+
+    for probe, shape, variants, kern, plain, library, moved in PR.cases(dev):
+        want = plain()
+        plain_ms = time_ms(plain, 2)
+        lib_ms = None
+        if library is not None:
+            if not torch.equal(library(), want):
+                raise AssertionError(f"probe {probe} at {shape}: "
+                                     f"{PR.LIBRARY_CALL[probe]} differs from "
+                                     "the plain version")
+            lib_ms = time_ms(library)
+        lib = ("" if lib_ms is None
+               else f", {PR.LIBRARY_CALL[probe]} {lib_ms:.4f} ms")
+        name = probe.split("_")[0]
+        for v in variants:
+            got = kern(v)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"probe {probe} at {shape}, variant {v}: "
+                                     f"{got.dtype} {tuple(got.shape)}, plain "
+                                     f"{want.dtype} {tuple(want.shape)}")
+            err = max_abs(got, want)
+            if err != 0:
+                raise AssertionError(f"probe {probe} at {shape}, variant {v}: "
+                                     f"differs from the plain version by "
+                                     f"{err}")
+            del got
+            ms = time_ms(lambda: kern(v))
+            units = moved // 8  # words moved: half read, half written
+            ops = PROBE_OPS[v] * (moved // 128 if probe == "u16" else units)
+            bms, by = bound(moved, ops)
+            phase(f"phase 13 {probe} {shape} {v}: max_abs_err={err} against "
+                  f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+                  f"bound {bms:.4f} ms ({by}: {moved} bytes, {ops} "
+                  f"operations) = {ms / bms:.2f}x")
+            if shape == PR.SHAPES[name][1]:
+                # the production shape's numbers go into the kernels line
+                rows[f"probe_{probe}_{v}"] = dict(
+                    replaces=PROBE_REPLACES[probe], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms, counter=PR.counter(name, v))
+        del want
+    kernels.reset_launches()
+    PR.run_all(dev, timed=False)
+    counts = dict(kernels.LAUNCHES)
+    for name, row in rows.items():
+        key = row.pop("counter")
+        if counts[key] < 1:
+            raise AssertionError(f"{key} not launched in the probe run "
+                                 f"({counts})")
+        path_launches[name] = counts[key]
+    phase(f"phase 13 probes: the counted run launched "
+          f"{ {k: v for k, v in counts.items() if k.startswith('probe_')} }")
+
+
+def xgc5d(t=12, planes=8, nodes=96, nvx=33, nvy=33, seed=3):
+    """The XGC-like 5D distribution of scripts/bench_5d.py: a Maxwellian
+    in (vx, vy) with a slow modulation over time, plane and node, plus
+    1e-3 noise."""
+    rng = np.random.default_rng(seed)
+    vx = np.linspace(-3, 3, nvx)
+    vy = np.linspace(-3, 3, nvy)
+    VX, VY = np.meshgrid(vx, vy, indexing="ij")
+    temp = 1.0 + 0.3 * np.sin(np.linspace(0, 3, nodes))[:, None, None]
+    maxw = np.exp(-(VX**2 + VY**2)[None] / (2 * temp))
+    f = np.empty((t, planes, nodes, nvx, nvy), np.float32)
+    for ti in range(t):
+        for p in range(planes):
+            turb = 1.0 + 0.05 * np.sin(
+                2 * np.pi * (3 * ti / t + 2 * p / planes)
+                + np.linspace(0, 6, nodes))[:, None, None]
+            f[ti, p] = (maxw * turb).astype(np.float32)
+    f += rng.normal(0, 1e-3, f.shape).astype(np.float32)
+    return f
+
+
+def generic_phases(dev, M, kernels):
+    """Phases 14-19: the generic compress surface at full size."""
+    from mgard_tpu_torch import highlevel as HL
+    from mgard_tpu_torch.hierarchy import get_hierarchy
+    from mgard_tpu_torch.lossless import bfp as B
+    from mgard_tpu_torch.ops import refactor as R
+    from mgard_tpu_torch.ops.roi import detect_roi
+
+    ABS, REL = M.error_bound_type.ABS, M.error_bound_type.REL
+    DT = M.decomposition_type
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    def counted(fn, zz):
+        """fn() with the launch counters reset just before and read just
+        after, and the BFP device cores recorded. A section of the generic
+        path is one call of bfp.encode_core (decode: decode_core), the
+        pre-sorted mode of K2 (K3): natural-order rows with the sort rank
+        computed from their own widths. The prepared-payload cores
+        (encode_core_zz, decode_core_zz) belong to the hybrid cf stream and
+        run `zz` times. Every launch of K2 or K3 must be one of these
+        calls. serialize_device_parts runs encode_core a second time on the
+        same symbols when the sticky exception bucket (sized by an earlier
+        stream of this size) is too small: such a call is a re-run, not a
+        section. Returns (result, ms, launches, sections, re-runs)."""
+        kernels.reset_launches()
+        with Recorder(B, "encode_core") as enc, \
+                Recorder(B, "decode_core") as dec, \
+                Recorder(B, "encode_core_zz") as enc_zz, \
+                Recorder(B, "decode_core_zz") as dec_zz:
+            out, ms = timed(fn)
+        ln = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        reruns = sum(
+            1 for (p, _), (c, _) in zip(enc.calls, enc.calls[1:])
+            if c[0] is p[0] and c[1:4] == p[1:4] and c[4] > p[4])
+        sections = len(enc.calls) - reruns + len(dec.calls)
+        if (len(enc_zz.calls) + len(dec_zz.calls) != zz
+                or ln.get("bfp_encode", 0) != len(enc.calls)
+                + len(enc_zz.calls)
+                or ln.get("bfp_decode", 0) != len(dec.calls)
+                + len(dec_zz.calls)):
+            raise AssertionError(
+                f"K2/K3 launches {ln} against {len(enc.calls)} encode_core "
+                f"({reruns} re-runs), {len(enc_zz.calls)} encode_core_zz, "
+                f"{len(dec.calls)} decode_core, {len(dec_zz.calls)} "
+                f"decode_core_zz calls (prepared-payload calls expected: "
+                f"{zz})")
+        return out, ms, ln, sections, reruns
+
+    def run(tag, v, tol, want, s=math.inf, mode=ABS, cfg=None, coords=None,
+            err_fn=None, limit=None, decomposition=DT.MultiDim,
+            demoted=False, reps=2, zz=0):
+        """Compress + decompress `v` `reps` times on the card, each call
+        under `counted`; check status, header, shape, type, finiteness, the
+        bound (err_fn(out), default L-inf, against `limit`, default tol),
+        that every kernel in `want` was launched, and the exact K2/K3
+        counts: each compress packs one pre-sorted section (one
+        bfp.encode_core call) plus `zz` prepared cf streams, each
+        decompress unpacks the same; the first compress may re-run its
+        section once for a larger exception bucket, the last must not (the
+        bucket is cached by then)."""
+        tc, td, reruns, launches = [], [], [], {}
+        for _ in range(reps):
+            (blob, st), ms, lc, sec_c, rr = counted(
+                lambda: M.compress(v, tol, s, mode, cfg, coords), zz)
+            tc.append(ms)
+            reruns.append(rr)
+            (out, st2), ms, ld, sec_d, _ = counted(
+                lambda: M.decompress(blob, device=dev), zz)
+            td.append(ms)
+            if (sec_c, sec_d) != (1, 1) or rr > 1 or st or st2:
+                raise AssertionError(
+                    f"{tag}: {sec_c} pre-sorted sections packed ({rr} "
+                    f"re-runs), {sec_d} unpacked, status {st}/{st2}; "
+                    f"launches {lc} / {ld}")
+            for k, n in {**lc, **ld}.items():
+                launches[k] = launches.get(k, 0) + n
+        if reruns[-1]:
+            raise AssertionError(f"{tag}: the exception bucket was cached, "
+                                 f"yet compress {reps} re-ran its section")
+        meta = header(blob)
+        err = (float((out - v).abs().max()) if err_fn is None
+               else err_fn(out))
+        limit = tol if limit is None else limit
+        missing = [k for k in want if launches.get(k, 0) < 1]
+        if (tuple(out.shape) != tuple(v.shape)
+                or out.dtype != v.dtype or out.device != v.device
+                or not bool(torch.isfinite(out).all()) or not err <= limit
+                or meta.decomposition != decomposition
+                or bool(meta.demoted) != demoted or missing):
+            raise AssertionError(
+                f"{tag}: out {tuple(out.shape)} "
+                f"{out.dtype}, error {err} (limit {limit}), header "
+                f"{meta.decomposition.name} demoted={meta.demoted}, not "
+                f"launched {missing} ({launches})")
+        nbytes = v.numel() * v.element_size()
+        phase(f"{tag}: {meta.decomposition.name}, header "
+              f"{M.data_type(meta.dtype).name}"
+              f"{' demoted' if meta.demoted else ''}, ratio "
+              f"{nbytes / len(blob):.4f}, error {err:.3e} <= {limit:.3e}; "
+              f"compress {min(tc):.1f} ms ({nbytes / min(tc) / 1e6:.3f} "
+              f"GB/s), decompress {min(td):.1f} ms "
+              f"({nbytes / min(td) / 1e6:.3f} GB/s) [best of {reps}; first "
+              f"{tc[0]:.1f} / {td[0]:.1f} ms]; each call 1 pre-sorted "
+              f"section + {zz} prepared cf streams, exception-bucket "
+              f"re-runs per compress {reruns}; launches of {reps} calls "
+              f"{launches} [{smi}]")
+        return blob, out, launches
+
+    def snorm(v, s, coords=None):
+        """Achieved error of `out` against `v` in the s-norm (host,
+        float64)."""
+        ref = v.double().cpu().numpy()
+        return lambda out: M.norm(out.double().cpu().numpy() - ref, s, coords)
+
+    PRESORTED = ("bfp_encode", "bfp_decode")
+
+    # -- 14. 1D 2^20 float64 sinusoid, s=0 --------------------------------
+    n1 = 1 << 20
+    x = torch.linspace(0.0, 1.0, n1, dtype=torch.float64, device=dev)
+    v1 = torch.sin(8 * np.pi * x) + 0.4 * torch.sin(37 * np.pi * x)
+    B._K_CACHE.clear()
+    if R._use_fast(get_hierarchy((n1,), np.float64)):
+        raise AssertionError("a 2^20 axis must take the slice path")
+    # the shape is hybrid-worthwhile, so the header keeps the default
+    # Hybrid; at finite s that is the MultiDim transform of the whole field
+    _, _, ln = run("phase 14 1D 2^20 f64 s=0 tol=1e-3", v1, 1e-3, PRESORTED,
+                   s=0.0, err_fn=snorm(v1, 0.0), decomposition=DT.Hybrid)
+    del x, v1
+
+    # -- 15. 5D (12,8,96,33,33) float32 -----------------------------------
+    v5 = torch.from_numpy(xgc5d()).to(dev)
+    run("phase 15 5D (12,8,96,33,33) f32 s=inf tol=1e-3", v5, 1e-3, PRESORTED)
+    vnorm = float(torch.sqrt(torch.mean(v5.double() ** 2)))
+    run("phase 15 5D (12,8,96,33,33) f32 s=0 REL tol=1e-3", v5, 1e-3,
+        PRESORTED, s=0.0, mode=REL, err_fn=snorm(v5, 0.0),
+        limit=1e-3 * vnorm)
+    del v5
+
+    # -- 16. 257^3 on a stretched grid; SingleDim at 129^3 ----------------
+    def stretched(n):
+        coords = [np.cumsum(1.0 + 0.8 * np.sin(np.linspace(0, 9 + d, n)))
+                  for d in range(3)]
+        coords = [c / c[-1] for c in coords]
+        X, Y, Z = (torch.from_numpy(c).to(dev) for c in coords)
+        v = (torch.sin(6 * X)[:, None, None] * torch.cos(5 * Y)[None, :, None]
+             + torch.exp(-3 * Z)[None, None, :]).float()
+        return v, coords
+
+    v3, coords = stretched(257)
+    mcfg = M.Config()
+    mcfg.decomposition = DT.MultiDim
+    run("phase 16 257^3 f32 non-uniform MultiDim s=inf tol=1e-3", v3, 1e-3,
+        PRESORTED, cfg=mcfg, coords=coords)
+    run("phase 16 257^3 f32 non-uniform MultiDim s=0 tol=1e-3", v3, 1e-3,
+        PRESORTED, s=0.0, cfg=mcfg, coords=coords,
+        err_fn=snorm(v3, 0.0, coords))
+    del v3
+    scfg = M.Config()
+    scfg.decomposition = DT.SingleDim
+    run("phase 16 129^3 f32 SingleDim s=inf tol=1e-3", bench_field(129, dev),
+        1e-3, PRESORTED, cfg=scfg, decomposition=DT.SingleDim)
+
+    # -- 17. 256^3 float64: demoted, then native --------------------------
+    v64 = bench_field(256, dev).double()
+    v64 = v64 + 1e-9 * torch.sin(40 * v64)  # digits no float32 holds
+    B._K_CACHE.clear()
+    blob, _, ln = run("phase 17 256^3 f64 tol=1e-3 (demoted)", v64, 1e-3,
+                      MAIN_PATH, decomposition=DT.Hybrid, demoted=True, zz=1)
+    if section_head(blob)[0] != 1 or header(blob).dtype != M.data_type.Double:
+        raise AssertionError("a demoted stream is a float32 flag-1 stream "
+                             "with a float64 header")
+    small = v64 * 0.01
+    blob, _, ln = run("phase 17 256^3 f64 x0.01 tol=1e-9 (native)", small,
+                      1e-9, PRESORTED, decomposition=DT.Hybrid)
+    if any(ln.get(k) for k in ("hybrid_fwd_v2", "hybrid_inv_v2", "hybrid_fwd",
+                               "hybrid_inv")):
+        raise AssertionError(f"native float64 reached a float32 front-end "
+                             f"kernel: {ln}")
+    del v64, small
+
+    # -- 18. compress_roi at 128^3 ----------------------------------------
+    nr = 128
+    xr = torch.linspace(0.0, 1.0, nr, device=dev)
+    vr = (torch.sin(4 * np.pi * xr)[:, None, None]
+          * torch.cos(3 * np.pi * xr)[None, :, None]
+          + xr[None, None, :] ** 2)
+    box = np.zeros((nr,) * 3, bool)
+    box[32:96, 32:96, 32:96] = True
+    auto = detect_roi(vr, get_hierarchy((nr,) * 3, np.float32))
+    tol, factor = 1e-2, 16.0
+    for what, arg, mask in (("explicit mask", box, box),
+                            ("roi_mask=None", None, auto)):
+        (blob, st), tc, lc, sec_c, rr = counted(
+            lambda: M.compress_roi(vr, tol, arg, roi_factor=factor), 0)
+        (out, st2), td, ld, sec_d, _ = counted(
+            lambda: M.decompress(blob, device=dev), 0)
+        ln = {**lc, **ld}
+        err = (out - vr).abs().cpu().numpy()
+        e_in, e_out = float(err[mask].max()), float(err[~mask].max())
+        if (st or st2 or not header(blob).roi_enabled
+                or not e_in <= tol / factor or not e_out <= tol
+                or (sec_c, sec_d) != (1, 1) or rr > 1
+                or ln != {"bfp_encode": 1 + rr, "bfp_decode": 1}):
+            raise AssertionError(f"phase 18 {what}: status {st}/{st2}, in-ROI "
+                                 f"{e_in}, outside {e_out}, {sec_c} "
+                                 f"pre-sorted sections packed ({rr} re-runs), "
+                                 f"{sec_d} unpacked, launches {ln}")
+        phase(f"phase 18 compress_roi 128^3 tol={tol} factor={factor:g}, "
+              f"{what} ({int(mask.sum())} nodes): in-ROI L-inf {e_in:.3e} <= "
+              f"{tol / factor:.3e}, outside {e_out:.3e} <= {tol}; ratio "
+              f"{vr.numel() * 4 / len(blob):.4f}; compress {tc:.1f} ms, "
+              f"decompress {td:.1f} ms; 1 pre-sorted section each way, {rr} "
+              f"exception-bucket re-runs; launches {ln} [{smi}]")
+    del vr
+
+    # -- 19. small streams of each new kind across devices ----------------
+    gen = np.random.default_rng(19)
+
+    def small_field(shape, dtype):
+        g = np.meshgrid(*[np.linspace(0, 1, n) for n in shape], indexing="ij")
+        v = sum(np.sin(3 * (i + 1) * a) for i, a in enumerate(g))
+        return (v + 0.01 * gen.standard_normal(shape)).astype(dtype)
+
+    c3 = [np.sort(gen.uniform(0, 1, n)) for n in (17, 18, 19)]
+    acfg = M.Config()
+    acfg.adjust_shape = True
+    kinds = [
+        ("1D f64 s=0", (4099,), np.float64, dict(s=0.0)),
+        ("2D f32 s=inf", (40, 40), np.float32, {}),
+        ("3D f64 native s=1", (17, 18, 19), np.float64, dict(s=1.0)),
+        ("3D f32 s=-1", (17, 18, 19), np.float32, dict(s=-1.0)),
+        ("3D f32 REL s=0", (17, 18, 19), np.float32, dict(s=0.0, mode=REL)),
+        ("3D f32 coords", (17, 18, 19), np.float32, dict(coords=c3)),
+        ("3D f32 SingleDim", (20, 21, 22), np.float32, dict(config=scfg)),
+        ("3D f32 adjust_shape", (30, 30, 30), np.float32, dict(config=acfg)),
+        ("4D f32", (9, 10, 11, 12), np.float32, {}),
+        ("5D f32", (5, 6, 7, 8, 9), np.float32, {}),
+        ("3D f64 demoted", (64, 64, 64), np.float64, {}),
+        ("3D f64 Hybrid native", (64, 64, 64), np.float64, dict(tol=1e-9)),
+        ("3D f32 ROI", (33, 34, 35), np.float32, dict(roi=True)),
+    ]
+    worst = 0.0
+    for what, shape, dtype, kw in kinds:
+        kw = dict(kw)
+        tol = kw.pop("tol", 1e-3)
+        roi = kw.pop("roi", False)
+        host = small_field(shape, dtype)
+        if tol < 1e-6:
+            host = host * 0.01
+        for writer, src in (("card", torch.from_numpy(host).to(dev)),
+                            ("CPU", torch.from_numpy(host))):
+            if roi:
+                mask = host > np.quantile(host, 0.8)
+                blob, st = M.compress_roi(src, tol, mask)
+            else:
+                blob, st = M.compress(src, tol, **kw)
+            og, sg = M.decompress(blob, device=dev)
+            oc, sc = M.decompress(blob, device="cpu")
+            d = float((og.cpu() - oc).abs().max())
+            # one stream, two devices: the symbols are the same, the
+            # transforms round in another order (matmuls); a demoted
+            # stream decodes in float32
+            lim = (1e-5 if dtype == np.float32 or "demoted" in what
+                   else 1e-13)
+            if st or sg or sc or og.dtype != src.dtype or not d <= lim:
+                raise AssertionError(f"phase 19 {what} written on the "
+                                     f"{writer}: status {st}/{sg}/{sc}, card "
+                                     f"vs CPU decode {d} (limit {lim})")
+            if kw.get("s", math.inf) == math.inf and not roi:
+                e = float((oc - torch.from_numpy(host)).abs().max())
+                if not e <= tol:
+                    raise AssertionError(f"phase 19 {what}: L-inf {e}")
+            worst = max(worst, d / lim)
+    phase(f"phase 19 {len(kinds)} kinds of small streams, each written on "
+          f"the card and on the CPU, each decoded on both: statuses 0, card "
+          f"vs CPU decode within 1e-5 (float32) / 1e-13 (float64), worst "
+          f"{worst:.3f} of its limit")
 
 
 def main():
@@ -1071,15 +1483,27 @@ def main():
           f"{K_primed} -> flag 1 with K={flags[0][1]}, next stream flag 2; "
           f"L-inf {err:.3e}")
     del out, v
+    torch.cuda.empty_cache()
 
     path_launches = {**{k: launches_main[k] for k in MAIN_PATH},
                      **{k: launches_bfx[k] for k in BFX_PATH},
                      "bitplane_encode": launches_mdr["bitplane_encode"],
                      **{k: launches_fused[k] for k in FUSED_PATH}}
+
+    # -- 13. the layout probes; 14-19. the generic compress surface -------
+    probe_rows = {}
+    probe_phase(dev, kernels, probe_rows, path_launches)
+    torch.cuda.empty_cache()
+    generic_phases(dev, M, kernels)
+
+    print(smi[0], flush=True)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=path_launches[k], **rows[k])
-        for k, (src, rep) in REPO_KERNELS.items()]}), flush=True)
+        for k, (src, rep) in REPO_KERNELS.items()] + [
+        dict(name=k, route="cuda", source=PROBE_SOURCE,
+             launches=path_launches[k], **row)
+        for k, row in probe_rows.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

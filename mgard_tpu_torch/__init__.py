@@ -3,10 +3,11 @@ compression of scientific grids), written for one NVIDIA H100.
 
 It sits beside the JAX package ``mgard_tpu``, which stays the reference, and
 writes and reads the same streams. It imports neither JAX nor ``mgard_tpu``.
-It covers ``compress``/``decompress`` of float32 fields at s=inf with the
-Hybrid decomposition and the BFP or BFX lossless stage, and the MDR
-progressive refactor/retrieval API (``mgard_tpu_torch.mdr``, float32 and
-float64). The hand-written CUDA kernels live in ``csrc/`` and are built at
+It covers ``compress``/``decompress``/``compress_roi`` of 1D-5D float32 and
+float64 fields (s = inf and finite s, ABS and REL bounds, the Hybrid,
+MultiDim and SingleDim decompositions, non-uniform grids) with the BFP or
+BFX lossless stage, ``norm`` (the s-norms the bounds are stated in), and
+the MDR progressive refactor/retrieval API (``mgard_tpu_torch.mdr``). The hand-written CUDA kernels live in ``csrc/`` and are built at
 first use (``kernels.py``). Entry points run on the CUDA card unless the
 caller asks for the CPU (``device="cpu"``).
 """
@@ -29,13 +30,22 @@ from .dtypes import (  # noqa: E402
     error_bound_type,
     lossless_type,
 )
-from .highlevel import compress, decompress  # noqa: E402
+from .highlevel import (  # noqa: E402
+    adjust_shape,
+    compress,
+    compress_roi,
+    decompress,
+)
+from .ops.norms import norm  # noqa: E402
 
 __version__ = "0.1.0"
 __all__ = [
     "Config",
+    "adjust_shape",
     "compress",
+    "compress_roi",
     "decompress",
+    "norm",
     "compress_status_type",
     "data_type",
     "decomposition_type",

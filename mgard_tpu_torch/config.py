@@ -2,8 +2,8 @@
 
 The same fields, defaults and enum values as ``mgard_tpu.config.Config``, so
 one set of knobs drives both packages (``interop.config_from_jax``). Fields
-that only the JAX package reads (mesh, MDR, Huffman knobs) are carried
-unchanged; the port's main path reads the hybrid and BFP ones.
+that only the JAX package reads (mesh, Huffman knobs) are carried
+unchanged.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ class Config:
     lossless: lossless_type = lossless_type.BFP
     # float64 input whose L-inf budget covers the f64->f32 cast error is
     # compressed as its float32 image with that error deducted from the
-    # tolerance (a "demoted" stream; JAX package only for now).
+    # tolerance (a "demoted" stream: float32 payload, float64 header).
     f64_demote: bool = True
 
     # --- quantization / entropy knobs (JAX package backends) ----------
@@ -64,7 +64,7 @@ class Config:
     # serialization (the port runs subdomains in order for now).
     prefetch: bool = True
 
-    # --- MDR (JAX package only for now) ---------------------------------
+    # --- MDR ------------------------------------------------------------
     total_num_bitplanes: int = 32
     block_size: int = 256
     mdr_qoi_mode: bool = False

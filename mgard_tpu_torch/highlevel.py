@@ -1,26 +1,39 @@
-"""High-level API of the PyTorch port: ``compress`` / ``decompress``.
+"""High-level API of the PyTorch port: ``compress`` / ``decompress`` /
+``compress_roi``.
 
-Port of the Hybrid paths of ``mgard_tpu/highlevel.py``: a float32 field at
-s=inf under an ABS or REL tolerance, Hybrid decomposition (8^D local levels
-plus the multilevel transform of the corner remainder) and the BFP or BFX
-lossless stage. It writes the same self-describing streams as the JAX
-package, so either package decodes what the other wrote:
+Port of ``mgard_tpu/highlevel.py`` for the raw-symbol lossless backends
+(BFP, BFX) and the MGARD compressor: 1D-5D fields, float32 and float64,
+s = inf and finite s (positive, zero, negative), ABS and REL bounds, the
+Hybrid, MultiDim and SingleDim decompositions, non-uniform grids
+(``coords=``), shape adjustment, domain decomposition, certified
+float64 -> float32 demotion, and region-of-interest compression. It writes
+the same self-describing streams as the JAX package, so either package
+decodes what the other wrote. A subdomain's section is one of:
 
-- flag 1 ("v2", lossless=BFP, 3D): the cf stream as a prepared BFP5 blob
-  (kernels K1 and K2), then the remainder as a lossless section; decode
-  runs K3 and K4;
-- flag 2 ("v3", ``Config.hybrid_fused_pack``): the same cf blob with its
-  chunks in tile-major order, written by the fused transform+pack kernel
-  K10 once a base-plane count is known for the shape (the first stream of
-  a shape rides flag 1 and primes it); decode runs K11;
-- flag 0: one lossless section of all symbols (kernels K7 and K8 for the
-  front end of a 2D or 3D field): the path of lossless=BFX, and the
-  fallback when a chunk needs more than 16 bits or the shape fails the
-  flag-1 gate.
+- Hybrid at s = inf (8^D local levels plus the multilevel transform of the
+  corner remainder), behind a front-end flag byte:
+  - flag 1 ("v2", lossless=BFP, 3D float32): the cf stream as a prepared
+    BFP5 blob (kernels K1 and K2), then the remainder as a lossless
+    section; decode runs K3 and K4;
+  - flag 2 ("v3", ``Config.hybrid_fused_pack``): the same cf blob with its
+    chunks in tile-major order, written by the fused transform+pack kernel
+    K10 once a base-plane count is known for the shape (the first stream of
+    a shape rides flag 1 and primes it); decode runs K11;
+  - flag 0: one lossless section of all symbols (kernels K7 and K8 for the
+    front end of a 2D or 3D float32 field; float64 runs the plain front
+    end on every device): the path of lossless=BFX, and the fallback when
+    a chunk needs more than 16 bits or the shape fails the flag-1 gate;
+- raw: the MultiDim or SingleDim transform of the whole subdomain
+  (``ops/refactor.py``), quantized level by level (``ops/quantize.py``)
+  into one lossless section. This serves every shape that is not
+  hybrid-worthwhile (the header records the effective decomposition),
+  finite s, and region-of-interest streams.
 
 A lossless section of fewer than ``bfp.SB_PALLAS_MIN * 32`` symbols is BFX
 (kernels K5 and K6) whatever the backend asked for, as in the JAX package;
-the section's backend id keeps the stream self-describing.
+the section's backend id keeps the stream self-describing. A larger one
+under lossless=BFP is one ``bfp.encode_core`` stream (K2/K3 in their
+pre-sorted mode).
 
 The JAX package writes flag 1 only on a TPU; the port writes it on every
 device, so its CPU path and its CUDA path produce the same format. A tensor
@@ -28,16 +41,24 @@ runs on the device it lives on; a NumPy input goes to ``device``, and
 ``decompress`` decodes onto ``device``: the CUDA card unless the caller
 asks for the CPU (``device="cpu"``). Without a CUDA device a call that asks
 for the card raises RuntimeError; it does not run on the CPU instead.
-Requests outside the ported paths raise NotImplementedError naming the
+Requests outside the ported paths (the ZFP compressor, the Huffman-class
+backends, the zstd second stage) raise NotImplementedError naming the
 ROADMAP item that brings them.
+
+Three points where the port departs from the JAX package on purpose, each a
+defect recorded against the reference: the demotion gate reduces the cast
+error and the maximum per subdomain, never over the whole array; a demoted
+stream decodes in float32 throughout, its flag-0 front end included; and
+``ops/roi.detect_roi`` attributes a child block to its parent by centre.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import struct
 import zlib
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,19 +76,51 @@ from .dtypes import (
     error_bound_type,
     lossless_type,
     norm_type,
+    np_dtype,
 )
 from .formats.metadata import FormatError, Metadata
 from .hierarchy import get_hierarchy
 from .lossless import bfp as _bfp, bfx as _bfx
 from .lossless.registry import lossless_decompress, section_parts
-from .ops import hybrid as Hy
-from .ops.refactor import decompose, recompose
+from .ops import hybrid as Hy, quantize as Q
+from .ops.refactor import (
+    decompose,
+    decompose_single,
+    recompose,
+    recompose_single,
+)
 from .utils.bytesink import join, parts_size
 from .utils.log import Timer, log
 
 
+_TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.float64): torch.float64}
+_NP_DTYPE = {t: d for d, t in _TORCH_DTYPE.items()}
+
+
 def _todo(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def adjust_shape(shape):
+    """ShapeAdjustment (reference: CompressionHighLevel/
+    ShapeAdjustment.hpp:43): pad each axis to a hierarchy-friendly size.
+    Rule: the next 2^k+1 when that costs <= 12.5% growth (perfect dyadic
+    chains), else the next multiple of 8 (keeps the hybrid/BFX tiling
+    aligned). Padding uses edge values; the original shape is recorded in
+    the header and restored on decompression."""
+    out = []
+    for n in shape:
+        if n <= 3:
+            out.append(n)
+            continue
+        k = (n - 2).bit_length()
+        dyadic = (1 << k) + 1
+        if dyadic >= n and dyadic <= int(n * 1.125) + 1:
+            out.append(dyadic)
+        else:
+            out.append((n + 7) // 8 * 8)
+    return tuple(out)
 
 
 def _hybrid_worthwhile(shape) -> bool:
@@ -78,6 +131,13 @@ def _hybrid_worthwhile(shape) -> bool:
     return pad_factor <= 1.25 and int(np.prod(shape)) >= (1 << 18)
 
 
+def infer_orthogonal_projection(s: float) -> bool:
+    """Hierarchical fast path for L-infinity bounds (reference:
+    Compressor.hpp:229-236): s == inf skips the mass-matrix correction and
+    the quantizer widens accordingly."""
+    return not math.isinf(s)
+
+
 def _effective_raw_lt(lt: lossless_type, n: int) -> lossless_type:
     """Streams under SB_PALLAS_MIN*32 symbols use BFX (the section's backend
     id keeps the blob self-describing)."""
@@ -86,9 +146,39 @@ def _effective_raw_lt(lt: lossless_type, n: int) -> lossless_type:
     return lt
 
 
-def _norm_kernel(v):
-    """The s=inf norm of a REL bound: max |v|."""
-    return v.abs().max()
+def _norm_kernel(v, s_inf: bool, normalize: bool):
+    """max |v| for s = inf; else the root of the float64 square sum (over
+    the element count when `normalize`), cast to v's type. 0-dim tensor."""
+    if s_inf:
+        return v.abs().max()
+    acc = torch.sum(v.to(torch.float64) ** 2)
+    if normalize:
+        acc = acc / v.numel()
+    return torch.sqrt(acc).to(v.dtype)
+
+
+def calculate_norm(v, s: float, normalize: bool) -> float:
+    n = float(_norm_kernel(v, math.isinf(s), normalize))
+    if n == 0.0:
+        n = float(np.finfo(_NP_DTYPE[v.dtype]).eps)
+    return n
+
+
+def _compress_core_sym(v, quantizers, hier, orthogonal: bool, s_inf: bool,
+                       single_dim: bool = False, step_mult=None):
+    """Raw-symbol compress core: transform, then levelwise quantization to
+    int32 symbols (no outlier capture, no dictionary shift)."""
+    dec = (decompose_single if single_dim else decompose)(v, hier, orthogonal)
+    return Q.quantize_symbols(dec, hier, quantizers, s_inf,
+                              step_mult=step_mult)
+
+
+def _decompress_core_sym(sym, quantizers, hier, orthogonal: bool, s_inf: bool,
+                         single_dim: bool = False, step_mult=None):
+    dec = Q.dequantize_symbols(sym, hier, quantizers, s_inf,
+                               step_mult=step_mult)
+    return (recompose_single if single_dim else recompose)(dec, hier,
+                                                           orthogonal)
 
 
 def _hybrid_quantizer(abs_tol: float, l_total: int) -> float:
@@ -101,9 +191,16 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _inv_q(q: float) -> float:
-    """1/q as the JAX package computes it: a float32 division."""
-    return float(np.float32(1.0) / np.float32(q))
+def _in_type(x: float, dtype) -> float:
+    """x rounded to the working type (NumPy dtype)."""
+    return float(np.dtype(dtype).type(x))
+
+
+def _inv_q(q: float, dtype=np.float32) -> float:
+    """1/q as the JAX package computes it: a division in the field's
+    type."""
+    t = np.dtype(dtype).type
+    return float(t(1.0) / t(q))
 
 
 def _pick_v2_chunk(padded, config: Config) -> int:
@@ -130,13 +227,15 @@ def _v2_sb(config: Config, n_cf: int, C: int) -> int:
     return _bfp.SB_BLOCKS
 
 
-def _hybrid_v2_ok(padded, config: Config) -> bool:
-    """Gate of the flag-1 front end (the JAX gate without its TPU term)."""
+def _hybrid_v2_ok(padded, dtype, config: Config) -> bool:
+    """Gate of the flag-1 front end (the JAX gate without its TPU term);
+    K1/K4 are float32 kernels."""
     C = _pick_v2_chunk(padded, config)
     n_cf = int(np.prod(padded))
     sb = _v2_sb(config, n_cf, C)
     return (
-        config.lossless == lossless_type.BFP
+        np.dtype(dtype) == np.float32
+        and config.lossless == lossless_type.BFP
         and bool(config.hybrid_level_grouping)
         and Hy._tile_shape_v2(padded) is not None
         and C >= 1
@@ -169,12 +268,13 @@ def _v3_params(config: Config, padded):
     return None, E, C
 
 
-def _hybrid_v3_ok(padded, config: Config) -> bool:
+def _hybrid_v3_ok(padded, dtype, config: Config) -> bool:
     """Gate of the fused transform+pack front end (the JAX gate without its
     TPU term): asked for, the (8, 128, Z) tile = superblock scheme fits,
     and a base-plane count K >= 1 with K + E <= 16 is already known."""
     if not (
         bool(getattr(config, "hybrid_fused_pack", False))
+        and np.dtype(dtype) == np.float32
         and config.lossless == lossless_type.BFP
         and bool(config.hybrid_level_grouping)
         and not int(getattr(config, "bfp_chunk", 0) or 0)
@@ -237,12 +337,13 @@ def _decompress_core_hybrid_v3(base, crl, resid, rem_sym, q: float, shape,
 def _compress_core_hybrid(v, q: float, padded, nl: int, rem_hier,
                           zgroup: bool):
     """Flag-0 symbols: the cf field (z-class grouped when zgroup) followed
-    by the quantized remainder transform. A 2D or 3D field takes K7 (a
-    CUDA tensor launches it); other ranks run the plain version on every
-    device, as the JAX package runs XLA for them."""
+    by the quantized remainder transform. A 2D or 3D float32 field takes K7
+    (a CUDA tensor launches it); other ranks, and float64, run the plain
+    version on every device, as the JAX package runs XLA for them."""
     v = _edge_pad(v, padded).contiguous()
-    inv_q = _inv_q(q)
-    front = (Hy.local_transform_fused if v.ndim in (2, 3)
+    inv_q = _inv_q(q, rem_hier.dtype)
+    front = (Hy.local_transform_fused
+             if v.ndim in (2, 3) and v.dtype == torch.float32
              else Hy.local_transform)
     cf_sym, rem = front(v, inv_q, nl)
     rem_dec = decompose(rem, rem_hier, orthogonal=False)
@@ -254,14 +355,20 @@ def _compress_core_hybrid(v, q: float, padded, nl: int, rem_hier,
 
 def _decompress_core_hybrid(sym, q: float, shape, padded, nl: int, rem_hier,
                             zgroup: bool):
+    """Inverse of _compress_core_hybrid in the remainder hierarchy's type:
+    the stream's working type, float32 for a demoted stream (the JAX
+    package hands its front-end gate the declared float64 there and so
+    misses its float32 kernel; the port does not)."""
     n_cf = int(np.prod(padded))
-    q = _f32(q)
-    rem_dec = (sym[n_cf:].to(torch.float32) * q).reshape(rem_hier.shape)
+    work = _TORCH_DTYPE[np.dtype(rem_hier.dtype)]
+    q = _in_type(q, rem_hier.dtype)
+    rem_dec = (sym[n_cf:].to(work) * q).reshape(rem_hier.shape)
     rem = recompose(rem_dec, rem_hier, orthogonal=False)
     cf_sym = sym[:n_cf].reshape(padded)
     if zgroup:
         cf_sym = Hy.zclass_ungroup(cf_sym)
-    back = (Hy.local_inverse_fused if len(padded) in (2, 3)
+    back = (Hy.local_inverse_fused
+            if len(padded) in (2, 3) and work == torch.float32
             else Hy.local_inverse)
     out = back(cf_sym.contiguous(), rem.contiguous(), q, nl)
     return out[tuple(slice(0, s) for s in shape)]
@@ -295,31 +402,43 @@ def _raw_section_parts(lt_eff, dev_state) -> list:
     return section_parts(lt_eff, codec.serialize_device_parts(dev_state))
 
 
-def _dispatch_subdomain(v, hier, config: Config, abs_tol: float):
+def _dispatch_subdomain(v, hier, config: Config, abs_tol: float, s: float,
+                        orthogonal: bool):
     """Device phase of one subdomain: launch its pipeline and return an
     opaque state for _serialize_subdomain."""
-    nl = max(1, min(3, int(config.num_local_refactoring_level)))
-    padded = Hy.pad_to8(hier.shape)
-    rem_hier = get_hierarchy(Hy.remainder_shape(padded, nl), hier.dtype, None,
-                             config)
-    q = _hybrid_quantizer(abs_tol, Hy.hybrid_l_total(padded, nl, rem_hier))
-    if _hybrid_v3_ok(padded, config):
-        K, E, _ = _v3_params(config, padded)
-        base, resid, cw, rem_sym = _compress_core_hybrid_v3(
-            v, q, padded, nl, rem_hier, K, E)
-        rem_state = _raw_encode_device(rem_sym, config)
-        return ("hybrid_v3", (base, resid, cw, rem_state, v, q, padded, nl,
-                              rem_hier, K, E))
-    if _hybrid_v2_ok(padded, config):
-        C = _pick_v2_chunk(padded, config)
-        pay, cw, rem_sym = _compress_core_hybrid_v2(v, q, padded, nl,
-                                                    rem_hier, C)
-        rem_state = _raw_encode_device(rem_sym, config)
-        return ("hybrid_v2",
-                (pay, cw, rem_state, v, q, padded, nl, rem_hier, C))
-    sym = _compress_core_hybrid(v, q, padded, nl, rem_hier,
-                                bool(config.hybrid_level_grouping))
-    return ("hybrid_raw", _raw_encode_device(sym, config))
+    s_inf = math.isinf(s)
+    if config.decomposition == decomposition_type.Hybrid and s_inf:
+        nl = max(1, min(3, int(config.num_local_refactoring_level)))
+        padded = Hy.pad_to8(hier.shape)
+        rem_hier = get_hierarchy(Hy.remainder_shape(padded, nl), hier.dtype,
+                                 None, config)
+        q = _hybrid_quantizer(abs_tol,
+                              Hy.hybrid_l_total(padded, nl, rem_hier))
+        if _hybrid_v3_ok(padded, hier.dtype, config):
+            K, E, _ = _v3_params(config, padded)
+            base, resid, cw, rem_sym = _compress_core_hybrid_v3(
+                v, q, padded, nl, rem_hier, K, E)
+            rem_state = _raw_encode_device(rem_sym, config)
+            return ("hybrid_v3", (base, resid, cw, rem_state, v, q, padded,
+                                  nl, rem_hier, K, E))
+        if _hybrid_v2_ok(padded, hier.dtype, config):
+            C = _pick_v2_chunk(padded, config)
+            pay, cw, rem_sym = _compress_core_hybrid_v2(v, q, padded, nl,
+                                                        rem_hier, C)
+            rem_state = _raw_encode_device(rem_sym, config)
+            return ("hybrid_v2",
+                    (pay, cw, rem_state, v, q, padded, nl, rem_hier, C))
+        sym = _compress_core_hybrid(v, q, padded, nl, rem_hier,
+                                    bool(config.hybrid_level_grouping))
+        return ("hybrid_raw", _raw_encode_device(sym, config))
+    # MultiDim and SingleDim, and Hybrid at finite s (the multilevel
+    # transform of the whole subdomain under the MultiDim error constant)
+    quantizers = hier.quantizers(abs_tol, s, 0.0, error_bound_type.ABS,
+                                 config.decomposition, orthogonal)
+    sym = _compress_core_sym(
+        v, quantizers, hier, orthogonal, s_inf,
+        config.decomposition == decomposition_type.SingleDim)
+    return ("raw", _raw_encode_device(sym.reshape(-1), config))
 
 
 def _flag0_parts(lt_eff, dev_state) -> list:
@@ -381,7 +500,7 @@ def _serialize_hybrid_v3(st, config: Config) -> list:
     true u16 overflow; elsewhere the stream is flag 0."""
     (base, resid, cw, rem_state, v, q, padded, nl, rem_hier, K, E) = st
     if int(cw.max()) > K + E:
-        if _hybrid_v2_ok(padded, config):
+        if _hybrid_v2_ok(padded, rem_hier.dtype, config):
             C2 = _pick_v2_chunk(padded, config)
             pay, cw2, _ = _compress_core_hybrid_v2(v, q, padded, nl,
                                                    rem_hier, C2)
@@ -401,10 +520,12 @@ def _serialize_hybrid_v3(st, config: Config) -> list:
             + cf_parts + _raw_section_parts(*rem_state))
 
 
-def _sections_wire_minor(sections) -> int:
+def _sections_wire_minor(sections, config: Config) -> int:
     """The least minor file version the payload needs: 1 (file 2.1) only
     when a flag-2 section was written, so 2.0 readers go on parsing every
     stream they can decode."""
+    if config.decomposition != decomposition_type.Hybrid:
+        return 0
     off = len(_EMPTY_OUTLIERS)
     for sec in sections:
         first = bytes(sec[0])
@@ -418,6 +539,8 @@ def _serialize_subdomain(state, config: Config) -> list:
         return _serialize_hybrid_v3(state[1], config)
     if state[0] == "hybrid_v2":
         return _serialize_hybrid_v2(state[1], config)
+    if state[0] == "raw":
+        return [_EMPTY_OUTLIERS] + _raw_section_parts(*state[1])
     return _flag0_parts(*state[1])
 
 
@@ -448,33 +571,68 @@ def as_tensor(data, device=None):
     return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 
-def _check_slice(s: float, config: Config, dtype) -> None:
-    """Raise NotImplementedError for requests outside the ported slice."""
-    if dtype == torch.float64:
-        _todo("float64 compression (demotion and the native f64 transform)",
-              "ROADMAP queue 1 item 9")
-    if not math.isinf(s):
-        _todo("finite-s error bounds", "ROADMAP queue 1 item 9")
-    if config.compressor != compressor_type.MGARD:
-        _todo("the ZFP compressor", "ROADMAP queue 1 item 9")
-    if config.decomposition != decomposition_type.Hybrid:
-        _todo(f"{config.decomposition.name} decomposition",
-              "ROADMAP queue 1 item 9")
-    if config.lossless not in (lossless_type.BFP, lossless_type.BFX):
-        _todo(f"lossless backend {config.lossless.name}",
+def _check_backend(compressor, lossless) -> None:
+    """Raise NotImplementedError for what the port does not serve yet: the
+    ZFP compressor, and every lossless backend but BFP and BFX."""
+    if compressor != compressor_type.MGARD:
+        _todo("the ZFP compressor", "ROADMAP queue 1 item 9b")
+    if lossless in (lossless_type.BFP_Zstd, lossless_type.BFX_Zstd):
+        _todo(f"the zstd second stage of {lossless.name}",
               "ROADMAP queue 1 item 11")
-    if config.adjust_shape:
-        _todo("shape adjustment on compress", "ROADMAP queue 1 item 9")
+    if lossless not in (lossless_type.BFP, lossless_type.BFX):
+        _todo(f"lossless backend {lossless.name}", "ROADMAP queue 1 item 11")
+
+
+def _demotion_tolerance(v, tol: float, mode, config: Config):
+    """The tolerance left for the float32 image of the float64 field `v`
+    at s = inf, or None when the budget is too tight to demote.
+
+    Certified precision demotion: when the L-inf budget covers the exact
+    float64 -> float32 cast error e_c, the float32 image goes through the
+    float32 pipeline with e_c deducted, and |out - u| <= (tol_abs - e_c) +
+    e_c = tol_abs holds on the double data. e_c and max |v| are reduced
+    subdomain by subdomain (the maximum of the per-subdomain maxima is the
+    same number): the JAX package casts and reduces the whole array before
+    it decomposes the domain, which a field near the device's memory does
+    not survive."""
+    dd = DomainDecomposer(tuple(v.shape), np.float64, config, device=v.device)
+    e_c = vmax = 0.0
+    for i in range(dd.num_subdomains):
+        a = v[dd.subdomain_slices(i)]
+        e_c = max(e_c, float((a - a.to(torch.float32).to(torch.float64))
+                             .abs().max()))
+        if mode == error_bound_type.REL:
+            vmax = max(vmax, float(a.abs().max()))
+    abs_tol = float(tol) * vmax if mode == error_bound_type.REL else float(tol)
+    if (math.isfinite(abs_tol) and math.isfinite(e_c) and abs_tol > 0.0
+            and e_c <= 0.25 * abs_tol):
+        # the 1e-9 relative cushion absorbs the rounding of the e_c
+        # reduction itself
+        return abs_tol - e_c * (1.0 + 1e-9)
+    return None
+
+
+def _sub_coords(coords_list, sls):
+    return ([c[sl] for c, sl in zip(coords_list, sls)] if coords_list
+            else None)
+
+
+def _dstype(coords):
+    return (data_structure_type.Cartesian_Grid_Uniform if coords is None
+            else data_structure_type.Cartesian_Grid_Non_Uniform)
 
 
 def compress(data, tol: float, s: float = math.inf,
              mode: error_bound_type = error_bound_type.ABS,
              config: Optional[Config] = None,
-             device=None) -> Tuple[bytes, compress_status_type]:
-    """Compress a 3D float32 field under an L-inf error bound.
+             coords: Optional[Sequence[np.ndarray]] = None,
+             device=None, _demote_src=None
+             ) -> Tuple[bytes, compress_status_type]:
+    """Compress a 1D-5D float32/float64 field under an error bound.
 
     ``data`` is a torch tensor (compressed on its own device) or a NumPy
-    array (moved to ``device``, default the CUDA card). Returns (blob,
+    array (moved to ``device``, default the CUDA card). ``coords`` gives
+    one coordinate array per axis for a non-uniform grid. Returns (blob,
     status)."""
     config = config or Config()
     if config.log_level:
@@ -487,31 +645,92 @@ def compress(data, tol: float, s: float = math.inf,
         return b"", compress_status_type.NotSupportDataTypeFailure
     if v.ndim < 1 or v.ndim > MAX_DIM:
         return b"", compress_status_type.NotSupportHigherNumberOfDimensionsFailure
-    try:
-        dt = dtype_enum(str(v.dtype).replace("torch.", ""))
-    except TypeError:
+    if v.dtype not in _NP_DTYPE:
         return b"", compress_status_type.NotSupportDataTypeFailure
-    shape = tuple(int(x) for x in v.shape)
-    _check_slice(s, config, v.dtype)
-    if not _hybrid_worthwhile(shape):
-        _todo(f"the MultiDim fallback for shape {shape}",
-              "ROADMAP queue 1 item 9")
+    _check_backend(config.compressor, config.lossless)
     try:
-        dd = DomainDecomposer(shape, np.float32, config, device=v.device)
+        dt = dtype_enum(_NP_DTYPE[v.dtype])
+        shape = tuple(int(x) for x in v.shape)
+        s_inf = math.isinf(s)
+        orthogonal = infer_orthogonal_projection(s)
+
+        if (_demote_src is None and v.dtype == torch.float64 and s_inf
+                and bool(config.f64_demote)):
+            rtol = _demotion_tolerance(v, tol, mode, config)
+            if rtol is not None:
+                return compress(v.to(torch.float32), rtol, s,
+                                error_bound_type.ABS, config, coords,
+                                _demote_src=dt)
+            # budget too tight for demotion: native float64 transform below
+
+        if (config.decomposition == decomposition_type.Hybrid
+                and not _hybrid_worthwhile(shape)):
+            # Hybrid pads every axis to x8; on small or awkward shapes the
+            # padding eats the ratio, so fall back to the MultiDim
+            # transform. The effective choice lands in the header, so
+            # decompression needs no knowledge of this rule.
+            config = dataclasses.replace(
+                config, decomposition=decomposition_type.MultiDim)
+
+        if coords is None and not s_inf and s < 0:
+            # Negative-s bounds on uniform grids route through the
+            # geometry-true (non-uniform) dist chain: the uniform chain
+            # re-spreads coarse spacing evenly on even axes, an
+            # approximation under which the achieved error, measured in
+            # the true-mesh s-norm (ops/norms.py), can exceed tol.
+            coords = [
+                np.linspace(0.0, 1.0, n) if config.normalize_coordinates
+                else np.arange(n, dtype=np.float64)
+                for n in shape
+            ]
+
+        adjusted = False
+        if config.adjust_shape and coords is None:
+            new_shape = adjust_shape(shape)
+            if new_shape != shape:
+                v = _edge_pad(v, new_shape)
+                adjusted = True
+
+        np_dt = _NP_DTYPE[v.dtype]
+        dd = DomainDecomposer(tuple(v.shape), np_dt, config, device=v.device)
         S = dd.num_subdomains
+
+        # Global norm (REL): max / sum of squares over subdomains
         norm = 0.0
         if mode == error_bound_type.REL:
-            norm = max(float(_norm_kernel(v[dd.subdomain_slices(i)]))
-                       for i in range(S))
-            if norm == 0.0:
-                norm = float(np.finfo(np.float32).eps)
+            if S == 1:
+                norm = calculate_norm(v, s, config.normalize_coordinates)
+            else:
+                acc = 0.0
+                for i in range(S):
+                    sub = v[dd.subdomain_slices(i)]
+                    if s_inf:
+                        acc = max(acc, float(_norm_kernel(sub, True, False)))
+                    else:
+                        acc += float(_norm_kernel(sub, False, False)) ** 2
+                if s_inf:
+                    norm = acc
+                elif config.normalize_coordinates:
+                    norm = math.sqrt(acc / int(np.prod(shape)))
+                else:
+                    norm = math.sqrt(acc)
+                if norm == 0.0:
+                    norm = float(np.finfo(np_dt).eps)
         local_tol = calc_local_abs_tol(mode, norm, tol, s, S)
+
+        coords_list = ([np.asarray(c, np.float64) for c in coords]
+                       if coords is not None else None)
+
+        def hierarchy(i):
+            return get_hierarchy(
+                dd.subdomain_shape(i), np_dt,
+                _sub_coords(coords_list, dd.subdomain_slices(i)), config)
+
         payload, sections = [], []
         for i in range(S):
-            hier = get_hierarchy(dd.subdomain_shape(i), np.float32, None,
-                                 config)
-            state = _dispatch_subdomain(v[dd.subdomain_slices(i)], hier,
-                                        config, local_tol)
+            state = _dispatch_subdomain(v[dd.subdomain_slices(i)],
+                                        hierarchy(i), config, local_tol, s,
+                                        orthogonal)
             sec = _serialize_subdomain(state, config)
             sections.append(sec)
             payload += [struct.pack("<Q", parts_size(sec))] + sec
@@ -520,15 +739,17 @@ def compress(data, tol: float, s: float = math.inf,
                 == domain_decomposition_type.Variable):
             var_sizes = tuple(dd.subdomain_shape(i)[dd.domain_decomposed_dim]
                               for i in range(S))
+        hybrid = config.decomposition == decomposition_type.Hybrid
         meta = Metadata(
-            dtype=dt,
+            dtype=dt if _demote_src is None else _demote_src,
+            demoted=_demote_src is not None,
             shape=shape,
-            dstype=data_structure_type.Cartesian_Grid_Uniform,
+            dstype=_dstype(coords),
+            coords=coords_list,
             decomposition=config.decomposition,
-            l_target=get_hierarchy(dd.subdomain_shape(0), np.float32, None,
-                                   config).l_target,
+            l_target=hierarchy(0).l_target,
             reorder=config.reorder,
-            hybrid_grouping=bool(config.hybrid_level_grouping),
+            hybrid_grouping=hybrid and bool(config.hybrid_level_grouping),
             domain_decomposed=dd.domain_decomposed,
             ddtype=config.domain_decomposition,
             domain_decomposed_dim=dd.domain_decomposed_dim,
@@ -537,19 +758,22 @@ def compress(data, tol: float, s: float = math.inf,
             ebtype=mode,
             norm=norm,
             tol=float(tol),
-            ntype=norm_type.L_Inf,
+            ntype=norm_type.L_Inf if s_inf else norm_type.L_2,
             s=float(s),
             ltype=config.lossless,
             huff_dict_size=config.huff_dict_size,
             huff_block_size=config.huff_block_size,
             block_delta_block_size=config.block_delta_block_size,
-            nlocal=max(1, min(3, int(config.num_local_refactoring_level))),
-            wire_minor=_sections_wire_minor(sections),
+            nlocal=(max(1, min(3, int(config.num_local_refactoring_level)))
+                    if hybrid else 0),
+            adjusted=adjusted,
+            wire_minor=_sections_wire_minor(sections, config),
         )
         blob = join([meta.serialize()] + payload)
+        nbytes = int(np.prod(shape)) * v.element_size()
         t_total.end()
-        t_total.print("compress total", v.numel() * 4)
-        log.info(f"compressed {v.numel() * 4} -> {len(blob)} bytes over "
+        t_total.print("compress total", nbytes)
+        log.info(f"compressed {nbytes} -> {len(blob)} bytes over "
                  f"{S} subdomain(s)")
         return blob, compress_status_type.Success
     except NotImplementedError:
@@ -563,10 +787,10 @@ def compress(data, tol: float, s: float = math.inf,
         return b"", compress_status_type.Failure
 
 
-def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
-                    device):
-    """Decode one subdomain's section -> float32 tensor of hier.shape."""
-    pos += _skip_outliers(blob, pos)
+def _decode_hybrid_section(blob, pos: int, meta, hier, cfg: Config,
+                           local_tol, device):
+    """Decode a Hybrid s=inf section (front-end flag 0, 1 or 2) -> tensor
+    of hier.shape in the hierarchy's type."""
     (flag,) = struct.unpack_from("<B", blob, pos)
     pos += 1
     if flag > 2:
@@ -574,7 +798,7 @@ def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
     nl = max(1, min(3, int(meta.nlocal) or 1))
     padded = Hy.pad_to8(hier.shape)
     rem_shape = Hy.remainder_shape(padded, nl)
-    rem_hier = get_hierarchy(rem_shape, np.float32, None, cfg)
+    rem_hier = get_hierarchy(rem_shape, hier.dtype, None, cfg)
     q = _hybrid_quantizer(local_tol, Hy.hybrid_l_total(padded, nl, rem_hier))
     if flag == 0:
         sym, _ = lossless_decompress(blob, pos, device)
@@ -585,6 +809,8 @@ def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
         return _decompress_core_hybrid(sym, q, hier.shape, padded, nl,
                                        rem_hier, bool(meta.hybrid_grouping))
     vtag = "v3" if flag == 2 else "v2"
+    if hier.dtype != np.float32:
+        raise FormatError(f"hybrid-{vtag} section in a {hier.dtype} stream")
     (cf_len,) = struct.unpack_from("<Q", blob, pos)
     pos += 8
     base, crl, rbuf, (n_cf, K, E, sb, C), _ = _bfp.deserialize_prepared(
@@ -616,6 +842,44 @@ def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
                                       padded, nl, rem_hier)
 
 
+def _roi_mult(mask_nested: np.ndarray, roi_factor: float) -> np.ndarray:
+    """Per-node reciprocal-step multiplier of a refinement map."""
+    return np.where(np.asarray(mask_nested) > 0, float(roi_factor), 1.0)
+
+
+def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
+                    device):
+    """Decode one subdomain's section -> tensor of hier.shape in the
+    hierarchy's type."""
+    roi_mults = None
+    if meta.roi_enabled:
+        from .ops.roi import roi_map_nested
+
+        (mz_len,) = struct.unpack_from("<Q", blob, pos)
+        pos += 8
+        mask = np.unpackbits(np.frombuffer(
+            zlib.decompress(blob[pos: pos + mz_len]), np.uint8)
+        )[: hier.total_num_elems].reshape(hier.shape).astype(bool)
+        pos += mz_len
+        roi_mults = _roi_mult(roi_map_nested(mask, hier), meta.roi_factor)
+    pos += _skip_outliers(blob, pos)
+    s_inf = math.isinf(meta.s)
+    if meta.decomposition == decomposition_type.Hybrid and s_inf:
+        return _decode_hybrid_section(blob, pos, meta, hier, cfg, local_tol,
+                                      device)
+    sym, _ = lossless_decompress(blob, pos, device)
+    if int(sym.shape[0]) != hier.total_num_elems:
+        raise FormatError(f"payload has {int(sym.shape[0])} symbols, "
+                          f"expected {hier.total_num_elems}")
+    orthogonal = infer_orthogonal_projection(meta.s)
+    quantizers = hier.quantizers(local_tol, meta.s, 0.0, error_bound_type.ABS,
+                                 meta.decomposition, orthogonal)
+    return _decompress_core_sym(
+        sym, quantizers, hier, orthogonal, s_inf,
+        meta.decomposition == decomposition_type.SingleDim,
+        step_mult=roi_mults)
+
+
 def decompress(blob: bytes, config: Optional[Config] = None,
                device=None) -> Tuple[Optional[torch.Tensor],
                                      compress_status_type]:
@@ -629,42 +893,37 @@ def decompress(blob: bytes, config: Optional[Config] = None,
     t_total = Timer()
     t_total.start()
     try:
-        cfg = config or Config()
-        if config is not None and config.log_level:
-            log.level = max(log.level, int(config.log_level))
-        if meta.ctype != compressor_type.MGARD:
-            _todo("the ZFP compressor", "ROADMAP queue 1 item 9")
-        if meta.dstype != data_structure_type.Cartesian_Grid_Uniform:
-            _todo("non-uniform grids", "ROADMAP queue 1 item 9")
-        if meta.dtype != dtype_enum(np.float32) and not meta.demoted:
-            _todo("float64 streams", "ROADMAP queue 1 item 9")
-        if not math.isinf(meta.s):
-            _todo("finite-s streams", "ROADMAP queue 1 item 9")
-        if meta.roi_enabled:
-            _todo("region-of-interest streams", "ROADMAP queue 1 item 9")
-        if meta.decomposition != decomposition_type.Hybrid:
-            _todo(f"{meta.decomposition.name} streams",
-                  "ROADMAP queue 1 item 9")
-        if meta.ltype not in (lossless_type.BFP, lossless_type.BFX):
-            _todo(f"lossless backend {meta.ltype.name}",
-                  "ROADMAP queue 1 item 11")
-        if meta.adjusted:
-            _todo("shape-adjusted streams", "ROADMAP queue 1 item 9")
+        cfg = dataclasses.replace(config) if config is not None else Config()
+        if cfg.log_level:
+            log.level = max(log.level, int(cfg.log_level))
+        _check_backend(meta.ctype, meta.ltype)
+        dtype = np_dtype(meta.dtype)
+        # a demoted stream carries the float32 payload of a double field:
+        # the whole decode runs in float32 and the last cast restores the
+        # declared type (the bound was certified at compress time with the
+        # cast error deducted)
+        work_dtype = np.dtype(np.float32) if meta.demoted else np.dtype(dtype)
         shape = tuple(int(n) for n in meta.shape)
-        dd = DomainDecomposer.from_metadata(shape, np.float32, meta, cfg)
+        work_shape = adjust_shape(shape) if meta.adjusted else shape
+        dd = DomainDecomposer.from_metadata(work_shape, work_dtype, meta, cfg)
         S = dd.num_subdomains
         local_tol = calc_local_abs_tol(meta.ebtype, meta.norm, meta.tol,
                                        meta.s, S)
-        out = torch.empty(shape, dtype=torch.float32, device=device)
+        out = torch.empty(work_shape, dtype=_TORCH_DTYPE[work_dtype],
+                          device=device)
         for i in range(S):
             (sec_len,) = struct.unpack_from("<Q", blob, off)
             off += 8
-            hier = get_hierarchy(dd.subdomain_shape(i), np.float32, None, cfg)
-            out[dd.subdomain_slices(i)] = _decode_section(
-                blob, off, meta, hier, cfg, local_tol, device)
+            sls = dd.subdomain_slices(i)
+            hier = get_hierarchy(dd.subdomain_shape(i), work_dtype,
+                                 _sub_coords(meta.coords, sls), cfg)
+            out[sls] = _decode_section(blob, off, meta, hier, cfg, local_tol,
+                                       device)
             off += sec_len
+        if meta.adjusted:
+            out = out[tuple(slice(0, n) for n in shape)]
         if meta.demoted:
-            out = out.to(torch.float64)
+            out = out.to(_TORCH_DTYPE[np.dtype(dtype)])
         t_total.end()
         t_total.print("decompress total", out.numel() * out.element_size())
         return out, compress_status_type.Success
@@ -677,3 +936,98 @@ def decompress(blob: bytes, config: Optional[Config] = None,
 
         traceback.print_exc()
         return None, compress_status_type.Failure
+
+
+# ----------------------------------------------------------------------
+# Region-of-interest compression (reference: mgard::compress_roi,
+# include/compress.tpp + adaptive_roi.tpp; examples/roi/mgard_roi.cpp)
+# ----------------------------------------------------------------------
+def compress_roi(data, tol: float, roi_mask=None, roi_factor: float = 16.0,
+                 s: float = math.inf,
+                 mode: error_bound_type = error_bound_type.ABS,
+                 config: Optional[Config] = None,
+                 coords: Optional[Sequence[np.ndarray]] = None,
+                 roi_detect: Optional[dict] = None,
+                 device=None) -> Tuple[bytes, compress_status_type]:
+    """Compress with a finer error bound (tol/roi_factor) inside a region
+    of interest. roi_mask: boolean array of the data's shape, or None to
+    detect the region from the data's own multilevel coefficients
+    (ops/roi.py detect_roi). roi_detect: optional keyword arguments passed
+    on to detect_roi (init_bw, bw_ratio, thresh, buffer_radius). The stream
+    is one subdomain with its mask ahead of the symbols; ``decompress``
+    reads it."""
+    from .ops.roi import detect_roi, roi_map_nested
+
+    config = config or Config()
+    if config.decomposition == decomposition_type.Hybrid:
+        # ROI step multipliers are defined on the MultiDim nested-box
+        # hierarchy; the effective choice is recorded in the header
+        config = dataclasses.replace(
+            config, decomposition=decomposition_type.MultiDim)
+    try:
+        v = as_tensor(data, device)
+    except TypeError:
+        return b"", compress_status_type.NotSupportDataTypeFailure
+    if v.ndim < 1 or v.ndim > MAX_DIM:
+        return b"", compress_status_type.NotSupportHigherNumberOfDimensionsFailure
+    if v.dtype not in _NP_DTYPE:
+        return b"", compress_status_type.NotSupportDataTypeFailure
+    _check_backend(config.compressor, config.lossless)
+    try:
+        np_dt = _NP_DTYPE[v.dtype]
+        shape = tuple(int(x) for x in v.shape)
+        s_inf = math.isinf(s)
+        orthogonal = infer_orthogonal_projection(s)
+        coords_list = ([np.asarray(c, np.float64) for c in coords]
+                       if coords else None)
+        hier = get_hierarchy(shape, np_dt, coords_list, config)
+        if roi_mask is None:
+            mask = detect_roi(v, hier, **(roi_detect or {}))
+        else:
+            if isinstance(roi_mask, torch.Tensor):
+                roi_mask = roi_mask.cpu().numpy()
+            mask = np.asarray(roi_mask).astype(bool)
+        if mask.shape != shape:
+            raise ValueError("roi_mask shape must match data shape")
+        norm = 0.0
+        if mode == error_bound_type.REL:
+            norm = calculate_norm(v, s, config.normalize_coordinates)
+        quantizers = hier.quantizers(tol, s, norm, mode, config.decomposition,
+                                     orthogonal)
+        mult = _roi_mult(roi_map_nested(mask, hier), roi_factor)
+        sym = _compress_core_sym(
+            v, quantizers, hier, orthogonal, s_inf,
+            config.decomposition == decomposition_type.SingleDim,
+            step_mult=mult)
+        mask_z = zlib.compress(np.packbits(mask).tobytes(), 3)
+        sec = ([struct.pack("<Q", len(mask_z)), mask_z, _EMPTY_OUTLIERS]
+               + _raw_section_parts(*_raw_encode_device(sym.reshape(-1),
+                                                        config)))
+        meta = Metadata(
+            dtype=dtype_enum(np_dt),
+            shape=shape,
+            dstype=_dstype(coords_list),
+            coords=coords_list,
+            decomposition=config.decomposition,
+            l_target=hier.l_target,
+            ebtype=mode,
+            norm=norm,
+            tol=float(tol),
+            ntype=norm_type.L_Inf if s_inf else norm_type.L_2,
+            s=float(s),
+            ltype=config.lossless,
+            huff_dict_size=config.huff_dict_size,
+            huff_block_size=config.huff_block_size,
+            roi_enabled=True,
+            roi_factor=float(roi_factor),
+        )
+        blob = join([meta.serialize(), struct.pack("<Q", parts_size(sec))]
+                    + sec)
+        return blob, compress_status_type.Success
+    except NotImplementedError:
+        raise
+    except Exception:
+        import traceback
+
+        traceback.print_exc()
+        return b"", compress_status_type.Failure

@@ -8,7 +8,7 @@ at the root of the checkout, named by a hash of the sources and flags, so a
 changed source builds anew and an unchanged one is reused.
 
 Each C entry point launches its kernel (for K5/K6 and K10 a short chain of
-kernels) on the stream it is given and returns ``cudaGetLastError()``;
+kernels; for a probe the variant it is asked for) on the stream it is given and returns ``cudaGetLastError()``;
 ``launch`` raises on a nonzero code and only then counts the launch in
 ``LAUNCHES``.
 Nothing here runs on import, and nothing falls back: a CUDA tensor either
@@ -62,10 +62,23 @@ _SIGNATURES = {
                        _P],
     # base, crl, resid, rem, q, out, X, Y, Z, nl, K, E, stream
     "hybrid_unpack_v3": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
+    # the layout probes P1-P3 (csrc/probes.cu), each with a variant number:
+    # planes, woff, sb_off, tot, out, NSB, E, W, variant, stream
+    "probe_dynwin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out, rows of 32 words, mul, variant, stream
+    "probe_relayout": [_P, _P, _L, _I, _I, _P],
+    # zz, out, S, variant, stream
+    "probe_u16_planes": [_P, _P, _L, _I, _P],
 }
+# A probe's launches are counted per variant, under these names.
+_PROBE_COUNTERS = (
+    "probe_dynwin_or", "probe_dynwin_owner", "probe_relayout_direct",
+    "probe_relayout_cpasync", "probe_relayout_row32", "probe_relayout_row33",
+    "probe_u16_ballot", "probe_u16_butterfly")
 
 # Launch counts per kernel, bumped only where a kernel was launched.
-LAUNCHES = {name: 0 for name in _SIGNATURES}
+LAUNCHES = {name: 0 for name in _SIGNATURES if not name.startswith("probe_")}
+LAUNCHES.update({name: 0 for name in _PROBE_COUNTERS})
 # nvcc's output of the last build (register and shared-memory use).
 BUILD_LOG = ""
 
@@ -175,11 +188,12 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name``; raise if CUDA refused it, else count it."""
+def launch(name: str, *args, count_as: str = None) -> None:
+    """Launch kernel ``name``; raise if CUDA refused it, else count it
+    (under ``count_as`` where one entry point serves several variants)."""
     L = lib()
     rc = getattr(L, name)(*args)
     if rc:
         msg = L.mgard_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-    LAUNCHES[name] += 1
+    LAUNCHES[count_as or name] += 1

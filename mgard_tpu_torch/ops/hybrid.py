@@ -64,8 +64,11 @@ for _lvl in range(3):
     _LEVEL_CLASSES.append(_classes)
 
 
-def _weights(t: float) -> Tuple[float, float]:
-    """float32 lerp weights (wl, wr), as the JAX package rounds them."""
+def _weights(t: float, dtype=torch.float32) -> Tuple[float, float]:
+    """Lerp weights (wl, wr) rounded to the field's type, as the JAX
+    package rounds them."""
+    if dtype == torch.float64:
+        return 1.0 - t, t
     return float(np.float32(1.0 - t)), float(np.float32(t))
 
 
@@ -121,7 +124,7 @@ def _interp_pass(w6, axis: int, lvl: int):
     the level's coefficient positions, reads only coarse ones."""
     dim = 2 * axis + 1
     for p, lp, rp, t in _LEVEL_CLASSES[lvl]:
-        wl, wr = _weights(t)
+        wl, wr = _weights(t, w6.dtype)
         w6.select(dim, p).copy_(w6.select(dim, lp) * wl
                                 + w6.select(dim, rp) * wr)
 
@@ -517,9 +520,9 @@ def local_transform(v, inv_q: float, nl: int):
 
 
 def local_inverse(sym, rem, q: float, nl: int):
-    """Plain version of K8: dequantize + corner insert + local recompose.
-    Any rank."""
-    cf = sym.to(torch.float32) * q
+    """Plain version of K8: dequantize + corner insert + local recompose,
+    in the remainder's type. Any rank."""
+    cf = sym.to(rem.dtype) * q
     return local_recompose(insert_remainder(cf, rem, nl), nl)
 
 

@@ -1,16 +1,26 @@
 """Multilevel decompose / recompose (the MGARD multigrid transform).
 
-Port of the dense-operator fast path of ``mgard_tpu/ops/refactor.py``
-(``decompose_level_fast`` / ``recompose_level_fast``) for float32 and
-float64, in the hierarchical basis and the L2-orthogonal one. Each level
-applies one (nf x nf) interpolation matrix and one 0/1 reorder matrix per
-axis, and for the orthogonal basis one (nc x nf) correction matrix per
-axis, each a ``torch.tensordot`` in the field's type; the JAX package ran
-the same operators as XLA matmuls outside any Pallas kernel. (It runs
-float64 through its slice path instead: the same linear map, rounded in
-another order.) The package sets float32 matmuls to full precision
+Port of ``mgard_tpu/ops/refactor.py``, float32 and float64, in the
+hierarchical basis and the L2-orthogonal one, on uniform and non-uniform
+grids (the hierarchy's tables carry the coordinates). Two routes compute
+the same linear map:
+
+- the dense-operator path (``decompose_level_fast`` /
+  ``recompose_level_fast``) while no finest-level axis passes
+  ``_FAST_MAX_AXIS``: per level one (nf x nf) interpolation matrix and one
+  0/1 reorder matrix per axis, and for the orthogonal basis one (nc x nf)
+  correction matrix per axis, each a ``torch.tensordot`` in the field's
+  type (the JAX package ran the same operators as XLA matmuls outside any
+  Pallas kernel, for float32 only; the port serves both types this way);
+- the split/lerp/merge "slice" path (``decompose_level`` /
+  ``recompose_level``) for longer axes (1D signals, anisotropic grids),
+  where a dense operator would be an O(n^2) matrix: per-axis slices,
+  lerps and the tridiagonal solve of ``ops/axis.py``.
+
+The package sets float32 matmuls to full precision
 (``mgard_tpu_torch/__init__.py``): TF32 would cost a large share of a 1e-3
-error budget.
+error budget. ``decompose_single`` / ``recompose_single`` are the SingleDim
+variant (one dimension coarsened at a time per level).
 
 Output layout is the reference's nested-box ("reo") layout: after the full
 decomposition the level-l data occupies the leading box level_shape[l].
@@ -25,10 +35,18 @@ import torch
 
 from ..hierarchy import Hierarchy
 from . import _be
-from .axis import mass_restrict_axis, split_axis, tridiag_solve_axis
+from .axis import (
+    mass_restrict_axis,
+    merge_axis,
+    prolong_axis,
+    split_axis,
+    tridiag_solve_axis,
+)
 
 # Largest finest-level axis the dense operators are built for (an nf x nf
-# matrix per level and axis), as in the JAX package.
+# matrix per level and axis: 4096^2 float32 = 64 MB), as in the JAX
+# package; a 2^20-sample axis would be a terabyte matrix. Longer axes take
+# the split/lerp/merge path.
 _FAST_MAX_AXIS = 4096
 
 
@@ -37,10 +55,18 @@ def _box(v, shape: Sequence[int]):
 
 
 def _rot(v):
-    """Move axis 0 to the end: (0,1,...,D-1) -> (1,...,D-1,0)."""
+    """Move axis 0 to the end: (0,1,...,D-1) -> (1,...,D-1,0). All per-axis
+    work of the slice path runs on axis 0 of the rotated array."""
     if v.ndim <= 1:
         return v
     return v.permute(tuple(range(1, v.ndim)) + (0,))
+
+
+def _rot_inv(v):
+    """Move the last axis to the front (inverse of _rot)."""
+    if v.ndim <= 1:
+        return v
+    return v.permute((v.ndim - 1,) + tuple(range(0, v.ndim - 1)))
 
 
 def _cached(hier: Hierarchy, name: str, key, build):
@@ -139,13 +165,10 @@ def _check(v, hier: Hierarchy):
     if _TYPES.get(v.dtype) != hier.dtype:
         raise TypeError(f"a {v.dtype} field with a {hier.dtype} hierarchy: "
                         "the transform takes float32 or float64, matching")
-    if max(hier.level_shape[hier.l_target]) > _FAST_MAX_AXIS:
-        raise NotImplementedError(
-            f"the port's transform covers axes up to {_FAST_MAX_AXIS} "
-            "(ROADMAP queue 1 item 9 brings longer ones)")
 
 
-def decompose_level(v, hier: Hierarchy, l: int, orthogonal: bool = False):
+def decompose_level_fast(v, hier: Hierarchy, l: int,
+                         orthogonal: bool = False):
     D = hier.D
     interp = v
     for d in range(D):
@@ -162,7 +185,8 @@ def decompose_level(v, hier: Hierarchy, l: int, orthogonal: bool = False):
     return _be.update_box(reo, coarse, D)
 
 
-def recompose_level(reo, hier: Hierarchy, l: int, orthogonal: bool = False):
+def recompose_level_fast(reo, hier: Hierarchy, l: int,
+                         orthogonal: bool = False):
     axes = hier.axis[l - 1]
     D = hier.D
     coarse_shape = hier.level_shape[l - 1]
@@ -185,27 +209,271 @@ def recompose_level(reo, hier: Hierarchy, l: int, orthogonal: bool = False):
     return interp + resid
 
 
+# ----------------------------------------------------------------------
+# The split/lerp/merge ("slice") path: O(n) work per axis, no dense
+# operator. Runs on torch tensors and, as the oracle, on NumPy arrays.
+# ----------------------------------------------------------------------
+def _correction(resid, axes):
+    """L2 projection of the residual field onto the coarse grid:
+    per-axis mass+restriction, then per-axis tridiagonal solve
+    (reference: CalcCorrection3D.hpp:27-185, Lpk1..3 then Ipk1..3).
+    Axis-d work is done on axis 0 of the rotated array."""
+    corr = resid
+    for al in axes:
+        corr = _rot(mass_restrict_axis(corr, 0, al))
+    for al in axes:
+        corr = _rot(tridiag_solve_axis(corr, 0, al))
+    return corr
+
+
+def _extract_coarse(v, axes):
+    coarse = v
+    for al in axes:
+        c, _ = split_axis(coarse, 0, al.n_fine)
+        coarse = _rot(c)
+    return coarse
+
+
+def decompose_level(v, hier: Hierarchy, l: int, orthogonal: bool = True):
+    """One coarsening step on the compact level-l box.
+
+    Returns the fine box in reordered layout: coarse values (+ correction if
+    orthogonal) in the leading coarse box, multilinear-interpolation
+    coefficients in the complementary slabs.
+    """
+    axes = hier.axis[l - 1]
+    D = hier.D
+
+    # Multilinear interpolant at every non-coarse node (coarse positions keep
+    # their original values, so v - interp is exactly 0 there). The per-axis
+    # interpolation passes commute, so rotating through the axes is exact.
+    interp = v
+    for al in axes:
+        interp = _rot(prolong_axis(interp, 0, al))
+    resid = v - interp
+
+    coarse = _extract_coarse(v, axes)
+    if orthogonal:
+        coarse = coarse + _correction(resid, axes)
+
+    # Reorder each axis into [coarse | coefficients]; composed over axes this
+    # produces the nested-box layout. The all-even class lands in the leading
+    # box holding zeros (resid is 0 there) and is overwritten by the coarse
+    # values.
+    reo = resid
+    for al in axes:
+        c_part, x_part = split_axis(reo, 0, al.n_fine)
+        reo = _rot(_be.concat([c_part, x_part], 0))
+    return _be.update_box(reo, coarse, D)
+
+
+def recompose_level(reo, hier: Hierarchy, l: int, orthogonal: bool = True):
+    """Inverse of decompose_level."""
+    axes = hier.axis[l - 1]
+    D = hier.D
+    coarse_shape = hier.level_shape[l - 1]
+
+    coarse_box = _box(reo, coarse_shape)
+    resid_reo = _be.update_box(reo, _be.zeros(coarse_shape, reo.dtype, reo), D)
+    # Un-reorder back to physical (interleaved) positions.
+    resid = resid_reo
+    for d in reversed(range(D)):
+        al = axes[d]
+        resid = _rot_inv(resid)
+        c_part = _be.sl(resid, 0, 0, al.n_coarse)
+        x_part = _be.sl(resid, 0, al.n_coarse, al.n_fine)
+        resid = merge_axis(c_part, x_part, 0, al.n_fine)
+
+    coarse_vals = coarse_box
+    if orthogonal:
+        coarse_vals = coarse_vals - _correction(resid, axes)
+
+    # Scatter coarse values back to their physical positions (zeros at the
+    # coefficient positions), then re-run the interpolation passes; they read
+    # only already-final values, reproducing decompose's interpolant exactly.
+    field = coarse_vals
+    for al in axes:
+        coeff_shape = list(field.shape)
+        coeff_shape[0] = al.n_fine - al.n_coarse
+        field = _rot(
+            merge_axis(
+                field, _be.zeros(tuple(coeff_shape), field.dtype, field), 0,
+                al.n_fine
+            )
+        )
+    interp = field
+    for al in axes:
+        interp = _rot(prolong_axis(interp, 0, al))
+    return interp + resid
+
+
+def _use_fast(hier: Hierarchy) -> bool:
+    """Dense operators while every finest-level axis allows them; the JAX
+    package adds "float32 only" (its float64 runs the slice path), the
+    port's tensordots serve both types."""
+    return max(hier.level_shape[hier.l_target]) <= _FAST_MAX_AXIS
+
+
+def _levels(v, hier: Hierarchy, levels, step, orthogonal: bool):
+    """Apply `step` to the level boxes of v in the order `levels`."""
+    for l in levels:
+        if l == hier.l_target:
+            v = step(v, hier, l, orthogonal)
+        else:
+            box = step(_box(v, hier.level_shape[l]), hier, l, orthogonal)
+            v = _be.update_box(v, box, hier.D)
+    return v
+
+
 def decompose(v, hier: Hierarchy, orthogonal: bool = False):
     """Full multilevel decomposition, finest to coarsest, nested-box output."""
     _check(v, hier)
-    for l in range(hier.l_target, 0, -1):
-        if l == hier.l_target:
-            v = decompose_level(v, hier, l, orthogonal)
-        else:
-            reo = decompose_level(_box(v, hier.level_shape[l]), hier, l,
-                                  orthogonal)
-            v = _be.update_box(v, reo, hier.D)
-    return v
+    step = decompose_level_fast if _use_fast(hier) else decompose_level
+    return _levels(v, hier, range(hier.l_target, 0, -1), step, orthogonal)
 
 
 def recompose(v, hier: Hierarchy, orthogonal: bool = False):
     """Full multilevel recomposition, coarsest to finest."""
     _check(v, hier)
-    for l in range(1, hier.l_target + 1):
-        if l == hier.l_target:
-            v = recompose_level(v, hier, l, orthogonal)
-        else:
-            rec = recompose_level(_box(v, hier.level_shape[l]), hier, l,
-                                  orthogonal)
-            v = _be.update_box(v, rec, hier.D)
+    step = recompose_level_fast if _use_fast(hier) else recompose_level
+    return _levels(v, hier, range(1, hier.l_target + 1), step, orthogonal)
+
+
+# ----------------------------------------------------------------------
+# SingleDim decomposition (reference: DataRefactoring/SingleDimension/
+# DataRefactoring.hpp:23-120: one dimension coarsened at a time per level;
+# lower memory, a different error constant in the quantizer)
+# ----------------------------------------------------------------------
+def _correction_axis(resid, d, al):
+    return tridiag_solve_axis(mass_restrict_axis(resid, d, al), d, al)
+
+
+def _sd_bshape(ndim, axis, n):
+    s = [1] * ndim
+    s[axis] = n
+    return tuple(s)
+
+
+def _lerp_pair(coarse, al, like):
+    """Interpolant of the coefficient nodes from their coarse neighbours
+    along axis 0."""
+    n_coeff = al.n_fine - al.n_coarse
+    left = _be.sl(coarse, 0, 0, n_coeff)
+    right = _be.sl(coarse, 0, 1, n_coeff + 1)
+    t = _be.asarray_like(al.lerp_t, like, _sd_bshape(like.ndim, 0, n_coeff))
+    return (left - left * t) + t * right
+
+
+def decompose_level_single(v, hier: Hierarchy, l: int,
+                           orthogonal: bool = True):
+    """One level, coarsening each axis in sequence with per-axis 1D
+    coefficients and corrections (axis-d work on axis 0 of the rotated
+    array, see _rot)."""
+    for al in hier.axis[l - 1]:
+        coarse, odd = split_axis(v, 0, al.n_fine)
+        coeff = odd - _lerp_pair(coarse, al, v)
+        if orthogonal:
+            resid = merge_axis(_be.zeros(coarse.shape, v.dtype, v), coeff, 0,
+                               al.n_fine)
+            coarse = coarse + _correction_axis(resid, 0, al)
+        v = _rot(_be.concat([coarse, coeff], 0))
+    return v
+
+
+def recompose_level_single(reo, hier: Hierarchy, l: int,
+                           orthogonal: bool = True):
+    axes = hier.axis[l - 1]
+    for d in reversed(range(hier.D)):
+        al = axes[d]
+        reo = _rot_inv(reo)
+        coarse = _be.sl(reo, 0, 0, al.n_coarse)
+        coeff = _be.sl(reo, 0, al.n_coarse, al.n_fine)
+        if orthogonal:
+            resid = merge_axis(_be.zeros(coarse.shape, reo.dtype, reo), coeff,
+                               0, al.n_fine)
+            coarse = coarse - _correction_axis(resid, 0, al)
+        odd = coeff + _lerp_pair(coarse, al, reo)
+        reo = merge_axis(coarse, odd, 0, al.n_fine)
+    return reo
+
+
+def decompose_single(v, hier: Hierarchy, orthogonal: bool = True):
+    _check(v, hier)
+    return _levels(v, hier, range(hier.l_target, 0, -1),
+                   decompose_level_single, orthogonal)
+
+
+def recompose_single(v, hier: Hierarchy, orthogonal: bool = True):
+    _check(v, hier)
+    return _levels(v, hier, range(1, hier.l_target + 1),
+                   recompose_level_single, orthogonal)
+
+
+def _mass_trans_single_x(coeff, d, al):
+    """The REFERENCE SingleDim mass-transfer along axis d (reference:
+    SingleDimension/Correction/MassTransKernel.hpp:66-112 + the LPK
+    mass_trans formula with a=c=e=0). Differs from mass_restrict_axis in
+    its boundary guards: the last coarse node takes NO contribution (b
+    requires j < n_coeff, and the h windows stop at n_coeff+nc-1), a
+    reference quirk that is self-consistent between its decompose and
+    recompose, so a cross-decoder must reproduce it exactly. Host NumPy."""
+    nf, nc = al.n_fine, al.n_coarse
+    ncf = nf - nc
+    h = np.zeros(2 * nc + 2, np.float64)
+    hsrc = np.asarray(al.h_ext, np.float64)
+    h[: hsrc.size] = hsrc
+    j = np.arange(nc)
+    lim = ncf + nc - 1
+    c1 = (j > 0) & (2 * j < lim)
+    c2 = 2 * j < lim
+    h1 = np.where(c1, h[np.maximum(2 * j - 2, 0)], 0.0)
+    h2 = np.where(c1, h[np.maximum(2 * j - 1, 0)], 0.0)
+    h3 = np.where(c2, h[2 * j], 0.0)
+    h4 = np.where(c2, h[2 * j + 1], 0.0)
+
+    cm = np.moveaxis(np.asarray(coeff, np.float64), d, -1)
+    bsel = (j > 0) & (j < ncf)
+    dsel = j < ncf
+    b = np.zeros(cm.shape[:-1] + (nc,), np.float64)
+    dd = np.zeros_like(b)
+    b[..., bsel] = cm[..., (j[bsel] - 1)]
+    dd[..., dsel] = cm[..., j[dsel]]
+    out = 2 * b * (h1 / 6) + (b * h2 + dd * h3) / 6 + 2 * dd * (h4 / 6)
+    return np.moveaxis(out, -1, d)
+
+
+def recompose_single_x(u, hier: Hierarchy):
+    """Inverse of the REFERENCE library's SingleDim decomposition in its
+    own nested-box layout (reference: DataRefactoring/SingleDimension/
+    DataRefactoring.hpp:110-185: per (level, dim) step the fine box has
+    dims > curr_dim still at the coarse level; coefficients sit at offset
+    level_shape(l, curr_dim) along curr_dim; the correction and lerp are
+    the same per-axis 1D operators as ours). For reference-written
+    SingleDim streams (host NumPy); the port's own SingleDim streams keep
+    the rotated-concat layout of decompose_single."""
+    v = np.asarray(u).copy()
+    D = hier.D
+    for l in range(hier.l_target):
+        for d in range(D):
+            fine_shape = tuple(
+                hier.level_shape[l][dd] if dd > d else hier.level_shape[l + 1][dd]
+                for dd in range(D)
+            )
+            al = hier.axis[l][d]
+            nf, nc = al.n_fine, al.n_coarse
+            box = v[tuple(slice(0, s) for s in fine_shape)].copy()
+            coarse = _be.sl(box, d, 0, nc)
+            coeff = _be.sl(box, d, nc, nf)
+            corr = tridiag_solve_axis(
+                _mass_trans_single_x(coeff, d, al), d, al
+            )
+            coarse = coarse - corr
+            n_coeff = nf - nc
+            left = _be.sl(coarse, d, 0, n_coeff)
+            right = _be.sl(coarse, d, 1, n_coeff + 1)
+            t = _be.asarray_like(al.lerp_t, box,
+                                 _sd_bshape(box.ndim, d, n_coeff))
+            odd = coeff + ((left - left * t) + t * right)
+            fine = merge_axis(coarse, odd, d, nf)
+            v[tuple(slice(0, s) for s in fine_shape)] = fine
     return v

@@ -369,8 +369,25 @@ def test_status_codes():
         M.compress_status_type.NotSupportDataTypeFailure
     assert M.decompress(b"not a stream", **cpu)[1] == \
         M.compress_status_type.Failure
-    with pytest.raises(NotImplementedError, match="item 9"):
-        M.compress(np.zeros((8, 8, 8), np.float32), 1e-3, **cpu)
+    # a small field takes the MultiDim fallback; what the port still lacks
+    # names its ROADMAP item
+    blob, st = M.compress(np.zeros((8, 8, 8), np.float32), 1e-3, **cpu)
+    assert st == M.compress_status_type.Success
+    assert Metadata.deserialize(blob)[0].decomposition == \
+        M.decomposition_type.MultiDim
+    out, st = M.decompress(blob, **cpu)
+    assert st == M.compress_status_type.Success and not out.any()
+    from mgard_tpu_torch.dtypes import compressor_type
+
+    for field, value, item in (
+            ("compressor", compressor_type.ZFP, "item 9b"),
+            ("lossless", M.lossless_type.Huffman, "item 11"),
+            ("lossless", M.lossless_type.BFP_Zstd, "item 11")):
+        cfg = M.Config()
+        setattr(cfg, field, value)
+        with pytest.raises(NotImplementedError, match=item):
+            M.compress(np.zeros((8, 8, 8), np.float32), 1e-3, config=cfg,
+                       **cpu)
 
 
 def test_default_device_is_the_card(monkeypatch, fresh_k_caches):

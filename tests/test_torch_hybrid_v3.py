@@ -263,20 +263,21 @@ def test_v3_params_reads_both_cache_keys(fresh_k_caches, padded):
 def test_hybrid_v3_ok_gate(fresh_k_caches):
     cfg = M.Config()
     cfg.bfp_base_planes = 5
-    assert not THL._hybrid_v3_ok(SMALL, cfg)  # not asked for
+    assert not THL._hybrid_v3_ok(SMALL, np.float32, cfg)  # not asked for
     cfg.hybrid_fused_pack = True
-    assert THL._hybrid_v3_ok(SMALL, cfg)
-    assert not THL._hybrid_v3_ok((16, 64, 256), cfg)  # Y % 128
+    assert THL._hybrid_v3_ok(SMALL, np.float32, cfg)
+    assert not THL._hybrid_v3_ok(SMALL, np.float64, cfg)  # float32 kernels
+    assert not THL._hybrid_v3_ok((16, 64, 256), np.float32, cfg)  # Y % 128
     for field_, bad in (("bfp_chunk", 4), ("bfp_sb_blocks", 8192),
                         ("bfp_base_planes", 9), ("bfp_resid_planes", 12),
                         ("hybrid_level_grouping", False),
                         ("lossless", M.lossless_type.BFX)):
         c2 = M.Config(**{**cfg.__dict__, field_: bad})
-        assert not THL._hybrid_v3_ok(SMALL, c2), field_
+        assert not THL._hybrid_v3_ok(SMALL, np.float32, c2), field_
     cfg.bfp_base_planes = 0
-    assert not THL._hybrid_v3_ok(SMALL, cfg)  # no K known yet
+    assert not THL._hybrid_v3_ok(SMALL, np.float32, cfg)  # no K known yet
     TB._K_CACHE[("v2", int(np.prod(SMALL)), E, 8, 0)] = (5, None)
-    assert THL._hybrid_v3_ok(SMALL, cfg)
+    assert THL._hybrid_v3_ok(SMALL, np.float32, cfg)
 
 
 def _flag(blob):

@@ -369,5 +369,8 @@ def test_unported_parts_raise():
         cli.main([])
     with pytest.raises(NotImplementedError, match="item 14"):
         mdr_sharded.MDRefactorSharded(np.zeros((8, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TM.MDRefactor(np.zeros((4100, 2), np.float32), device=CPU)
+    # an axis over 4096 refactors through the split/lerp/merge path (it
+    # raised before that path was ported)
+    meta, data = TM.MDRefactor(np.zeros((4100, 2), np.float32), device=CPU)
+    out = TM.MDReconstruct(meta, data, TM.MDRequest(meta, 1e-3), device=CPU)
+    assert tuple(out.data.shape) == (4100, 2) and not out.data.any()
