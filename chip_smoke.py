@@ -9,7 +9,10 @@ Phases (each prints a line; any failure exits nonzero before the result):
   3. each kernel against its plain PyTorch version on the card, at the
      512^3 geometries of the main path and of Hybrid+BFX (K7/K8 also at
      8192^2, and all at a few small geometries) and, for K9, at the 384^3
-     MDR field's finest-level stream, with times from CUDA events; K10/K11
+     MDR field's finest-level stream, with times from CUDA events; K1/K4
+     on ten small shapes (Z = 1024, C = 1, 2, 16, X and Y not powers of
+     two, nl 1-3) and a field with a width-32 chunk, and at 512^3 timed at
+     nl 1, 2 and 3, beside PyTorch casts that move the same bytes; K10/K11
      (the fused transform+pack pair) at 512^3 with the main path's K, at
      (8,128,128), (16,256,256), (8,128,768) and (8,128,1024) with K=1/E=15
      and K=8/E=8, and on a field with one value over the u16 budget;
@@ -123,6 +126,9 @@ REPO_KERNELS = {
     "hybrid_unpack_v3": ("mgard_tpu_torch/csrc/hybrid_v3.cu",
                          "mgard_tpu/ops/hybrid.py:1072"),
 }
+# K10/K11 ms at 512^3 on one H100 80GB HBM3 at 700 W before K1/K4 left the
+# shared tile walk of tile8.cuh (PERF.md's kernel table)
+K10_K11_BEFORE = (3.2725, 3.5967)
 MAIN_PATH = ("hybrid_fwd_v2", "bfp_encode", "bfp_decode", "hybrid_inv_v2")
 BFX_PATH = ("hybrid_fwd", "bfx_encode", "bfx_decode", "hybrid_inv")
 SMALL_MAIN_PATH = MAIN_PATH + ("bfx_encode", "bfx_decode")
@@ -720,8 +726,8 @@ def main():
         if not timed:
             if err_i != 0.0:
                 raise AssertionError(f"K4 differs from plain: {err_i}")
-            phase(f"phase 3 small {tuple(v.shape)} C={C} nl={nl}: K1 and K4"
-                  " equal to plain")
+            phase(f"phase 3 {tuple(v.shape)} C={C} nl={nl}: K1 and K4 equal "
+                  "to plain")
             return k
         report("hybrid_fwd_v2", err_f,
                time_ms(lambda: Hy.local_transform_fused_v2(v, inv_q, nl, C)),
@@ -734,13 +740,35 @@ def main():
                    k[0], k[2], HL._f32(q), nl), 2),
                tensor_bytes(k[0], k[2], oi),
                OPS_PER_ELEM["hybrid_inv_v2"] * oi.numel())
+        # yardsticks that move the same bytes (not the same function)
+        cast_f = time_ms(lambda: v.to(torch.float16))
+        cast_i = time_ms(lambda: k[0].view(torch.float16).to(torch.float32))
+        phase(f"phase 3 K1/K4 yardsticks: PyTorch's float32 -> float16 cast "
+              f"of the field {cast_f:.4f} ms (K1's bytes), float16 -> "
+              f"float32 of the payload {cast_i:.4f} ms (K4's)")
         return k
 
+    # K1/K4 at their edges: Z = 1024 (32 chunk rows a row, MAX_H), C in
+    # {1, 2, 16}, X and Y that are not powers of two, nl 1-3, and a field
+    # with one code whose bit 31 is set (its chunk's width is 32)
     gen = np.random.default_rng(7)
-    for shp, C, nl in (((16, 16, 128), 4, 3), ((8, 128, 768), 8, 3),
-                       ((16, 16, 256), 8, 2), ((16, 16, 128), 4, 1)):
+    small = (((16, 16, 128), 4, 3), ((8, 128, 768), 8, 3),
+             ((16, 16, 256), 8, 2), ((16, 16, 128), 4, 1),
+             ((8, 8, 1024), 1, 3), ((8, 8, 1024), 16, 2),
+             ((8, 8, 1024), 2, 1), ((24, 8, 384), 1, 3),
+             ((40, 384, 128), 2, 2), ((24, 8, 384), 3, 1))
+    for shp, C, nl in small:
         vs = torch.from_numpy(gen.standard_normal(shp).astype(np.float32))
         check_hybrid(vs.to(dev), C, nl, 1e-3, timed=False)
+    vs = torch.from_numpy(gen.standard_normal((8, 16, 256)).astype(np.float32))
+    vs[3, 5, 77] = 1.6e9
+    for nl in (1, 2, 3):
+        wide = check_hybrid(vs.to(dev), 2, nl, 1.0, timed=False)[1]
+        if int(wide.max()) != 32:
+            raise AssertionError("K1: a code with bit 31 set must give its "
+                                 f"chunk width 32, got {wide.max()}")
+    phase(f"phase 3 small K1/K4: the {len(small)} shapes above and the "
+          "width-32 field at nl 1-3 equal to plain")
 
     v = bench_field(N_MAIN, dev)
     padded = (N_MAIN,) * 3
@@ -749,6 +777,16 @@ def main():
                              cfg)
     q = HL._hybrid_quantizer(TOL, Hy.hybrid_l_total(padded, 3, rem_hier))
     C = HL._pick_v2_chunk(padded, cfg)
+    inv_q = HL._inv_q(q)
+    # num_local_refactoring_level is the caller's: at nl 1 a block holds 125
+    # corners, at nl 3 eight
+    for nl in (1, 2):
+        pay, cw, rem = check_hybrid(v, C, nl, q, timed=False)
+        fwd = time_ms(lambda: Hy.local_transform_fused_v2(v, inv_q, nl, C))
+        inv = time_ms(lambda: Hy.local_inverse_fused_v2(pay, rem, HL._f32(q),
+                                                        nl))
+        phase(f"phase 3 K1/K4 at 512^3, nl={nl}: K1 {fwd:.4f} ms, K4 "
+              f"{inv:.4f} ms")
     pay, cw, rem = check_hybrid(v, C, 3, q, timed=True)
 
     # K2/K3, cf stream (rank in-kernel, u16 rows) at the main path's K
@@ -907,7 +945,11 @@ def main():
           f"{rows['hybrid_pack_v3']['ms']:.4f} ms against K1 + K2 (cf) "
           f"{rows['hybrid_fwd_v2']['ms'] + cf_enc[0]:.4f} ms, K11 "
           f"{rows['hybrid_unpack_v3']['ms']:.4f} ms against K3 (cf) + K4 "
-          f"{cf_dec[0] + rows['hybrid_inv_v2']['ms']:.4f} ms")
+          f"{cf_dec[0] + rows['hybrid_inv_v2']['ms']:.4f} ms; K10/K11 "
+          f"against {K10_K11_BEFORE[0]} / {K10_K11_BEFORE[1]} ms before "
+          f"K1/K4 left tile8.cuh (unchanged): "
+          f"{rows['hybrid_pack_v3']['ms'] / K10_K11_BEFORE[0]:.4f}x / "
+          f"{rows['hybrid_unpack_v3']['ms'] / K10_K11_BEFORE[1]:.4f}x")
     del k, crl3, oi, clean, cw_over
     torch.cuda.empty_cache()
 

@@ -30,8 +30,10 @@ from .dtypes import (  # noqa: E402
     error_bound_type,
     lossless_type,
 )
+from .hierarchy import Hierarchy, get_hierarchy  # noqa: E402
 from .highlevel import (  # noqa: E402
     adjust_shape,
+    calculate_norm,
     compress,
     compress_roi,
     decompress,
@@ -41,7 +43,10 @@ from .ops.norms import norm  # noqa: E402
 __version__ = "0.1.0"
 __all__ = [
     "Config",
+    "Hierarchy",
+    "get_hierarchy",
     "adjust_shape",
+    "calculate_norm",
     "compress",
     "compress_roi",
     "decompress",

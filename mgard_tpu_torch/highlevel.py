@@ -158,6 +158,10 @@ def _norm_kernel(v, s_inf: bool, normalize: bool):
 
 
 def calculate_norm(v, s: float, normalize: bool) -> float:
+    """The norm a REL bound scales by (a tensor, or a NumPy array as in the
+    JAX package): max |v| at s = inf, else the root of the square sum
+    (over the element count when `normalize`); never 0."""
+    v = torch.as_tensor(v)
     n = float(_norm_kernel(v, math.isinf(s), normalize))
     if n == 0.0:
         n = float(np.finfo(_NP_DTYPE[v.dtype]).eps)

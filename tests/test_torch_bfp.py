@@ -15,6 +15,8 @@ import mgard_tpu_torch
 from mgard_tpu.lossless import bfp as J
 from mgard_tpu_torch.lossless import bfp as T
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 
 @pytest.fixture(autouse=True)
 def _fresh_k_caches(monkeypatch):

@@ -20,6 +20,8 @@ from mgard_tpu.lossless import bfx as J
 from mgard_tpu_torch.lossless import bfx as T
 from mgard_tpu_torch.utils.bytesink import join
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 
 def _rand_syms(n, scale, seed=0):
     """The symbols of tests/test_bfx.py: near zero, with large outliers."""

@@ -31,6 +31,8 @@ from mgard_tpu.mdr import bitplane as J
 from mgard_tpu_torch import kernels
 from mgard_tpu_torch.mdr import bitplane as T
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 M_SMALL = 4096  # (32, 4096): two K9 tiles
 M_LARGE = 65536 + 2048  # (32, 67584): 33 tiles
 

@@ -23,6 +23,8 @@ from mgard_tpu_torch.ops import hybrid as THy
 from test_torch_generic import (ABS, DT, INF, REL, both, configs, smooth,
                                 stretched, symbols)
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 
 def f64_field(shape, seed=7, scale=1.0):
     rng = np.random.default_rng(seed)

@@ -1,6 +1,9 @@
 """PyTorch port, the whole slice: compress/decompress through the public
 API on the CPU, and streams that cross-decode both ways with the JAX
-package within the tolerance.
+package within the tolerance. This file holds the flag-1 main path and the
+API's edges; the fused flag-2 path is in test_torch_highlevel_fused.py and
+the BFX sections in test_torch_highlevel_bfx.py, both on this file's
+helpers.
 
 (64, 64, 128) is the smallest shape with one full v2 superblock (16384
 blocks of 32 symbols). Its remainder has 8192 symbols, which ride BFX at
@@ -8,7 +11,6 @@ the production threshold; the ``bfp_small`` fixture gives both packages
 ``bfp.SB_PALLAS_MIN = 256`` so that the flag-1 tests below also cover a BFP
 remainder section. The BFX tests run at the production threshold."""
 
-import dataclasses
 import struct
 
 import numpy as np
@@ -22,8 +24,9 @@ from mgard_tpu.lossless import bfp as JB
 from mgard_tpu.ops import hybrid as JH
 from mgard_tpu_torch import highlevel as THL
 from mgard_tpu_torch.formats.metadata import MAGIC, Metadata
-from mgard_tpu_torch.interop import config_from_jax
 from mgard_tpu_torch.lossless import bfp as TB
+
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
 
 SHAPE = (64, 64, 128)
 
@@ -83,6 +86,19 @@ def _err(out, v):
     return float(np.max(np.abs(out.astype(np.float64) - v)))
 
 
+def _raw_backend(blob):
+    """Backend id of the first subdomain's lossless section (the remainder
+    section of a flag-1 stream)."""
+    _m, off = Metadata.deserialize(blob)
+    pos = off + 8 + len(THL._EMPTY_OUTLIERS)
+    flag = blob[pos]
+    pos += 1
+    if flag == 1:
+        (cf_len,) = struct.unpack_from("<Q", blob, pos)
+        pos += 8 + cf_len
+    return blob[pos]
+
+
 @pytest.mark.parametrize("tol", [1e-2, 1e-3])
 def test_port_flag1_stream_decodes_in_both_packages(bfp_small, tol):
     v = _field(SHAPE)
@@ -126,28 +142,6 @@ def test_tight_tolerance_takes_flag0_in_both_packages(bfp_small):
     assert st3 == M.compress_status_type.Success and _err(out, v) <= tol
 
 
-def test_stale_sticky_K_rechoose(bfp_small):
-    """A coarser then a finer tolerance on one shape keeps flag 1: the
-    serializer re-chooses K from the fresh widths and refreshes the cache
-    (the port's counterpart of the JAX test of the same name)."""
-    shape = (16, 128, 256)
-    v = _field(shape)
-    key = ("v2", int(np.prod(shape)), 8, 8, 0)
-    b1, s1 = M.compress(v, 1e-2, device="cpu")
-    assert s1 == 0 and key in TB._K_CACHE
-    K1 = TB._K_CACHE[key][0]
-    b2, s2 = M.compress(v, 1e-4, device="cpu")
-    assert s2 == 0
-    K2 = TB._K_CACHE[key][0]
-    assert K2 > K1, (K1, K2)
-    for blob, tol in ((b1, 1e-2), (b2, 1e-4)):
-        assert _flag(blob) == 1
-        out, st = M.decompress(blob, device="cpu")
-        assert st == 0 and _err(out, v) <= tol
-        outj, stj = mgard_tpu.decompress(blob)
-        assert int(stj) == 0 and _err(outj, v) <= tol
-
-
 def test_rel_mode(bfp_small):
     v = _field(SHAPE) * np.float32(7.0)
     tol = 1e-3
@@ -167,198 +161,6 @@ def test_tensor_input_stays_on_its_device(bfp_small):
     assert blob_np == blob_t
     with pytest.raises(ValueError):
         M.compress(torch.from_numpy(v), 1e-3, device="meta")
-
-
-def _raw_backend(blob):
-    """Backend id of the first subdomain's lossless section (the remainder
-    section of a flag-1 stream)."""
-    _m, off = Metadata.deserialize(blob)
-    pos = off + 8 + len(THL._EMPTY_OUTLIERS)
-    flag = blob[pos]
-    pos += 1
-    if flag == 1:
-        (cf_len,) = struct.unpack_from("<Q", blob, pos)
-        pos += 8 + cf_len
-    return blob[pos]
-
-
-def test_bfx_section_and_flag2_raise_clearly(fresh_k_caches):
-    """The default main path at (64, 64, 128) and the production threshold:
-    the 8192-symbol remainder rides a BFX section. Each package decodes the
-    other's flag-1 stream; a flag byte forged to 2 on a shape outside the
-    flag-2 scheme fails cleanly."""
-    v = _field(SHAPE)
-    tol = 1e-3
-    blob, st = M.compress(v, tol, device="cpu")
-    assert st == 0 and _flag(blob) == 1
-    assert _raw_backend(blob) == M.lossless_type.BFX
-    assert blob.count(b"BFP5") == 1 and blob.count(b"BFX2") == 1
-    out, st2 = M.decompress(blob, device="cpu")
-    assert st2 == 0 and _err(out, v) <= tol
-    outj, stj = mgard_tpu.decompress(blob)
-    assert int(stj) == 0 and _err(outj, v) <= tol
-    _jax_flag1(fresh_k_caches)
-    jblob, st = mgard_tpu.compress(v, tol=tol)
-    assert int(st) == 0 and _flag(jblob) == 1
-    assert _raw_backend(jblob) == M.lossless_type.BFX
-    out, st3 = M.decompress(jblob, device="cpu")
-    assert st3 == 0 and _err(out, v) <= tol
-    bad = bytearray(blob)
-    _m, off = Metadata.deserialize(blob)
-    bad[off + 8 + len(THL._EMPTY_OUTLIERS)] = 2
-    out, st4 = M.decompress(bytes(bad), device="cpu")
-    assert out is None and st4 == M.compress_status_type.Failure
-
-
-FUSED_SHAPE = (16, 128, 256)  # tests/test_hybrid_v3.py's public-API shape
-
-
-def _fused_cfg(K=0):
-    cfg = M.Config()
-    cfg.hybrid_fused_pack = True
-    cfg.bfp_base_planes = K
-    return cfg
-
-
-def _jax_flag2(monkeypatch):
-    """Let the JAX package write flag-2 streams on the CPU, its XLA oracle
-    standing in for the TPU kernel (as tests/test_hybrid_v3.py does)."""
-    monkeypatch.setattr(JHL, "_hybrid_v3_ok", lambda *a, **k: True)
-    monkeypatch.setattr(JH, "local_transform_pack_v3",
-                        lambda v, iq, nl, K, E:
-                        JH.transform_pack_v3_xla(v, iq, nl, K, E))
-
-
-def test_flag2_streams_cross_decode(fresh_k_caches):
-    """hybrid_fused_pack with a pinned base-plane count: each package
-    writes a flag-2 stream (file minor 1) that both decode within tol, with
-    the same header bytes and the same length."""
-    v = _field(FUSED_SHAPE, seed=9)
-    tol, K = 1e-3, 6
-    blob, st = M.compress(v, tol, config=_fused_cfg(K), device="cpu")
-    assert st == M.compress_status_type.Success and _flag(blob) == 2
-    assert _minor(blob) == 1
-    out, st2 = M.decompress(blob, device="cpu")
-    assert st2 == 0 and _err(out, v) <= tol
-    outj, stj = mgard_tpu.decompress(blob)
-    assert int(stj) == 0 and _err(outj, v) <= tol
-    assert float(np.max(np.abs(out.numpy() - np.asarray(outj)))) <= 1e-5
-    _jax_flag2(fresh_k_caches)
-    jcfg = mgard_tpu.Config()
-    jcfg.hybrid_fused_pack = True
-    jcfg.bfp_base_planes = K
-    jblob, st3 = mgard_tpu.compress(v, tol=tol, config=jcfg)
-    assert int(st3) == 0 and _flag(jblob) == 2
-    out2, st4 = M.decompress(jblob, device="cpu")
-    assert st4 == 0 and _err(out2, v) <= tol
-    hj = Metadata.deserialize(jblob)[1]
-    assert blob[:hj] == jblob[:hj] and len(blob) == len(jblob)
-
-
-def test_first_stream_primes_then_fuses(fresh_k_caches):
-    """No K pinned: the first stream of a shape rides flag 1 and fills the
-    sticky cache, the second one fuses (flag 2) with that K and has the
-    same bytes but for the chunk order."""
-    v = _field(FUSED_SHAPE)
-    cfg = _fused_cfg()
-    b1, s1 = M.compress(v, 1e-3, config=cfg, device="cpu")
-    key = ("v2", int(np.prod(FUSED_SHAPE)), 8, 8, 0)
-    assert s1 == 0 and _flag(b1) == 1 and key in TB._K_CACHE
-    b2, s2 = M.compress(v, 1e-3, config=cfg, device="cpu")
-    assert s2 == 0 and _flag(b2) == 2 and len(b2) == len(b1)
-    for blob in (b1, b2):
-        out, st = M.decompress(blob, device="cpu")
-        assert st == 0 and _err(out, v) <= 1e-3
-        outj, stj = mgard_tpu.decompress(blob)
-        assert int(stj) == 0 and _err(outj, v) <= 1e-3
-
-
-def test_fused_stale_K_falls_back_to_flag1_and_refreshes(fresh_k_caches):
-    """A tighter tolerance on a primed shape: the planes packed with the
-    stale K are dropped, the flag-1 serializer re-chooses K and refreshes
-    the cache, and the next stream fuses again with the new K."""
-    v = _field(FUSED_SHAPE)
-    cfg = _fused_cfg()
-    key = ("v2", int(np.prod(FUSED_SHAPE)), 8, 8, 0)
-    M.compress(v, 1e-2, config=cfg, device="cpu")
-    K1 = TB._K_CACHE[key][0]
-    b2, s2 = M.compress(v, 1e-4, config=cfg, device="cpu")
-    K2 = TB._K_CACHE[key][0]
-    assert s2 == 0 and _flag(b2) == 1 and K2 > K1
-    b3, s3 = M.compress(v, 1e-4, config=cfg, device="cpu")
-    assert s3 == 0 and _flag(b3) == 2 and TB._K_CACHE[key][0] == K2
-    for blob in (b2, b3):
-        out, st = M.decompress(blob, device="cpu")
-        assert st == 0 and _err(out, v) <= 1e-4
-        outj, stj = mgard_tpu.decompress(blob)
-        assert int(stj) == 0 and _err(outj, v) <= 1e-4
-
-
-@pytest.mark.parametrize("K", [0, 6])
-def test_fused_overflow_falls_back_to_flag0(fresh_k_caches, K):
-    """One value whose code leaves 16 bits: the fused front end reports its
-    tile's widths as 32 and the stream is written as flag 0 (file minor 0),
-    from a primed cache and from a pinned K alike; both packages decode
-    it."""
-    v = _field(FUSED_SHAPE)
-    cfg = _fused_cfg(K)
-    if not K:
-        M.compress(v, 1e-3, config=cfg, device="cpu")
-    v[3, 5, 7] = 1e4
-    blob, st = M.compress(v, 1e-3, config=cfg, device="cpu")
-    assert st == 0 and _flag(blob) == 0
-    assert _minor(blob) == 0
-    out, st2 = M.decompress(blob, device="cpu")
-    assert st2 == 0 and _err(out, v) <= 1e-3
-    outj, stj = mgard_tpu.decompress(blob)
-    assert int(stj) == 0 and _err(outj, v) <= 1e-3
-
-
-def _bfx_config():
-    jcfg = mgard_tpu.Config()
-    jcfg.lossless = mgard_tpu.lossless_type.BFX
-    cfg = config_from_jax(dataclasses.asdict(jcfg))
-    assert cfg.lossless == M.lossless_type.BFX
-    assert cfg.bfx_sb_blocks == jcfg.bfx_sb_blocks
-    return jcfg, cfg
-
-
-@pytest.mark.parametrize("shape", [SHAPE, (512, 512)])
-def test_bfx_backend_streams_cross_decode(fresh_k_caches, shape):
-    """lossless=BFX: a flag-0 stream of one BFX section (K7 and K5 on a
-    CUDA tensor). Each package decodes the other's stream within tol; a
-    JAX Config carried across gives the same header bytes."""
-    v = _field(shape) if len(shape) == 3 else _field(shape + (1,))[..., 0]
-    tol = 1e-3
-    jcfg, cfg = _bfx_config()
-    blob, st = M.compress(v, tol, config=cfg, device="cpu")
-    assert st == 0 and _flag(blob) == 0
-    assert _raw_backend(blob) == M.lossless_type.BFX
-    out, st2 = M.decompress(blob, device="cpu")
-    assert st2 == 0 and tuple(out.shape) == shape and _err(out, v) <= tol
-    outj, stj = mgard_tpu.decompress(blob)
-    assert int(stj) == 0 and _err(outj, v) <= tol
-    jblob, st3 = mgard_tpu.compress(v, tol=tol, config=jcfg)
-    assert int(st3) == 0 and _flag(jblob) == 0
-    out, st4 = M.decompress(jblob, device="cpu")
-    assert st4 == 0 and _err(out, v) <= tol
-    hj = Metadata.deserialize(jblob)[1]
-    assert blob[:hj] == jblob[:hj]
-
-
-def test_bfx_stream_of_a_4d_field_decodes_in_both_packages(fresh_k_caches):
-    """A 4D field takes the flag-0 plain versions on every device (the JAX
-    package runs no Pallas kernel for it either)."""
-    shape = (8, 8, 64, 64)
-    v = _field((8, 1, 8 * 64 * 64)).reshape(shape)
-    tol = 1e-3
-    blob, st = M.compress(v, tol, config=_bfx_config()[1], device="cpu")
-    assert st == 0 and _flag(blob) == 0
-    assert _raw_backend(blob) == M.lossless_type.BFX
-    out, st2 = M.decompress(blob, device="cpu")
-    assert st2 == 0 and tuple(out.shape) == shape and _err(out, v) <= tol
-    outj, stj = mgard_tpu.decompress(blob)
-    assert int(stj) == 0 and _err(outj, v) <= tol
 
 
 def test_status_codes():

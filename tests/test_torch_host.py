@@ -129,6 +129,22 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not offenders, offenders
 
 
+def test_port_exports_every_name_of_the_jax_package():
+    """The same API: every name in mgard_tpu.__all__ (and the two the JAX
+    package serves lazily, calculate_norm and compress_roi) is exported by
+    the port and resolves."""
+    want = set(mgard_tpu.__all__) | {"calculate_norm", "compress_roi"}
+    assert want <= set(mgard_tpu_torch.__all__), \
+        want - set(mgard_tpu_torch.__all__)
+    for name in mgard_tpu_torch.__all__:
+        assert getattr(mgard_tpu_torch, name) is not None, name
+    assert mgard_tpu_torch.get_hierarchy((9, 17), np.float32).shape == (9, 17)
+    assert isinstance(mgard_tpu_torch.get_hierarchy((9,), np.float64),
+                      mgard_tpu_torch.Hierarchy)
+    v = np.linspace(-2.0, 1.0, 50)
+    assert mgard_tpu_torch.calculate_norm(v, np.inf, False) == 2.0
+
+
 def test_decomposer_cpu_default_and_local_tol():
     cfg = mgard_tpu_torch.Config()
     dd = DomainDecomposer((512, 512, 512), np.float32, cfg, device="cpu")

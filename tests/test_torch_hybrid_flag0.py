@@ -20,6 +20,8 @@ import torch
 from mgard_tpu.ops import hybrid as JH
 from mgard_tpu_torch.ops import hybrid as TH
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 Q = np.float32(1.7e-4)
 INV_Q = np.float32(1.0) / Q
 

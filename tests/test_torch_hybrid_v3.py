@@ -30,6 +30,8 @@ from mgard_tpu_torch.lossless import bfp as TB
 from mgard_tpu_torch.ops import hybrid as TH
 from mgard_tpu_torch.utils.bytesink import join as tjoin
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 SHAPE = (16, 256, 256)
 SMALL = (16, 128, 256)
 NL = 3

@@ -18,6 +18,8 @@ from mgard_tpu_torch.lossless import bfp as TB
 from mgard_tpu_torch.lossless import bfx as TX
 from mgard_tpu_torch.ops import hybrid as TH
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -28,6 +28,8 @@ from mgard_tpu_torch import mdr as TM
 from mgard_tpu_torch.mdr import api as TA
 from mgard_tpu_torch.mdr import components as TC
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 CPU = "cpu"
 TOLS = (1e-1, 1e-2, 1e-3)
 

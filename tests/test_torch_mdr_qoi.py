@@ -22,6 +22,8 @@ from mgard_tpu_torch.mdr.components import estimate_error
 from mgard_tpu_torch.mdr.qoi import MDReconstructQoI, VTotQoI, \
     plan_joint_retrieval
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 CPU = "cpu"
 SHAPE = (33, 33)
 

@@ -17,6 +17,8 @@ import torch
 
 from mgard_tpu_torch import kernels, probes as P
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 SCRIPTS = pathlib.Path(__file__).resolve().parent.parent / "scripts"
 
 

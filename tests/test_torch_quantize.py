@@ -24,6 +24,8 @@ from mgard_tpu.ops import quantize as JQ
 from mgard_tpu_torch.hierarchy import get_hierarchy as t_hier
 from mgard_tpu_torch.ops import quantize as TQ
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 SHAPES = [(65,), (20, 21), (17, 18, 19), (5, 6, 7, 8)]
 
 

@@ -25,6 +25,8 @@ from mgard_tpu.ops import _be as JBE, refactor as JR
 from mgard_tpu_torch.hierarchy import get_hierarchy as t_hier
 from mgard_tpu_torch.ops import _be as TBE, refactor as TR
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 SHAPES = [(16, 16, 32), (32, 32, 32), (8, 32, 64)]
 
 

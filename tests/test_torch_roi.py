@@ -31,6 +31,8 @@ from mgard_tpu_torch.interop import config_from_jax, mask_to_host
 from mgard_tpu_torch.ops import roi as TR
 from test_torch_generic import assert_symbol_contract, header_bytes
 
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
 
 def feature_field(shape, center, width, noise=0.0, seed=0):
     """A smooth background with one sharp Gaussian feature."""
