@@ -16,6 +16,10 @@ Phases (each prints a line; any failure exits nonzero before the result):
      (the fused transform+pack pair) at 512^3 with the main path's K, at
      (8,128,128), (16,256,256), (8,128,768) and (8,128,1024) with K=1/E=15
      and K=8/E=8, and on a field with one value over the u16 budget;
+     K2/K3 on the cf and remainder streams of the main path (timed per
+     stream beside a copy of the rows that moves the same bytes, with
+     their ptxas lines), on the edge cases of bfp.BAND_CASES, and on wide
+     rows at sb=256; rows one element off 16-byte alignment are refused;
   4. the main path: compress + decompress a 512^3 float32 field at
      tol=1e-3 (s=inf, ABS, default Config) through the public API, with the
      launch counters reset just before and read just after (K1-K4);
@@ -129,6 +133,9 @@ REPO_KERNELS = {
 # K10/K11 ms at 512^3 on one H100 80GB HBM3 at 700 W before K1/K4 left the
 # shared tile walk of tile8.cuh (PERF.md's kernel table)
 K10_K11_BEFORE = (3.2725, 3.5967)
+# K2/K3 ms at 512^3, cf and remainder stream together, on the same card
+# in their warp-ballot design (PERF.md's kernel table)
+K2_K3_BEFORE = (1.3725, 1.3140)
 MAIN_PATH = ("hybrid_fwd_v2", "bfp_encode", "bfp_decode", "hybrid_inv_v2")
 BFX_PATH = ("hybrid_fwd", "bfx_encode", "bfx_decode", "hybrid_inv")
 SMALL_MAIN_PATH = MAIN_PATH + ("bfx_encode", "bfx_decode")
@@ -149,6 +156,24 @@ PROBE_OPS = {"or": 6, "owner": 2, "direct": 2, "cpasync": 3, "row32": 5,
 
 def phase(msg):
     print(msg, flush=True)
+
+
+def bfp_ptxas(log):
+    """ptxas -v lines of K2/K3 (csrc/bfp.cu): per kernel, its registers,
+    barriers, stack and spills."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in ("bfp_encode_kernel", "bfp_decode_kernel",
+                                     "invert_rank_kernel") if k in line),
+                        None)
+            if name and "ItE" in line:  # the template's row type
+                name += "<u16>"
+            elif name and "IjE" in line:
+                name += "<u32>"
+        elif name and ("stack frame" in line or "registers" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def bench_field(n, device, seed=42):
@@ -789,7 +814,7 @@ def main():
               f"{inv:.4f} ms")
     pay, cw, rem = check_hybrid(v, C, 3, q, timed=True)
 
-    # K2/K3, cf stream (rank in-kernel, u16 rows) at the main path's K
+    # K2/K3, cf stream (u16 rows) at the main path's K
     E, sb = B.E_DEFAULT, HL._v2_sb(cfg, N_MAIN ** 3, C)
     hist = np.bincount(np.clip(cw.cpu().numpy(), 0, 32), minlength=33)
     K = B.choose_K(hist, E, C)
@@ -808,7 +833,6 @@ def main():
     cf_enc = (time_ms(lambda: B.encode_bands(*enc_args, **enc_kw)),
               time_ms(lambda: B.encode_bands_plain(*enc_args, **enc_kw), 2))
     k2_io = [enc_args, B.encode_bands(*enc_args, **enc_kw)]
-    k2_syms = [enc_args[0].numel()]
     with Recorder(B, "decode_bands") as dec:
         back_k = B.decode_core_zz(out_k[0], crl, out_k[1], K, E, sb,
                                   n_cf // 32, C)
@@ -825,6 +849,33 @@ def main():
           f"rows equal; encode {cf_enc[0]:.4f} ms (plain {cf_enc[1]:.4f}), "
           f"decode {cf_dec[0]:.4f} ms (plain {cf_dec[1]:.4f})")
 
+    # u32 rows at the same size: the cf payload as the int32 rows of a
+    # stream with K+E > 16 (the flag-0 fallback's row type), K=9 E=8
+    w_rows = prow.to(torch.int32) & 0xFFFF
+    w_plan = B._zz_plan((cw - 9).clamp(0, E).to(torch.int32), E, sb, C,
+                        False)
+    w_args = (w_rows, w_plan[0], w_plan[3], w_plan[2], w_plan[4], 9, E, sb,
+              C, w_plan[6])
+    w_out = B.encode_bands(*w_args)
+    if not all(torch.equal(a, b)
+               for a, b in zip(w_out, B.encode_bands_plain(*w_args))):
+        raise AssertionError("K2 (u32 rows at 512^3) differs from plain")
+    w_dargs = (*w_out, *w_args[1:5], w_plan[1], 9, E, sb, C, True)
+    if not torch.equal(B.decode_bands(*w_dargs), w_rows):
+        raise AssertionError("K3 (u32 rows at 512^3) differs from the rows")
+    w_ms = (time_ms(lambda: B.encode_bands(*w_args)),
+            time_ms(lambda: B.decode_bands(*w_dargs)))
+    w_bytes = (tensor_bytes(w_args, w_out),
+               tensor_bytes(w_out[0], *w_args[1:5], w_plan[1], w_rows)
+               + 4 * C * int(w_plan[1].sum()))
+    w_ops = w_rows.numel() // 32 * 500
+    phase(f"phase 3 K2/K3 u32 rows at {N_MAIN}^3 (K=9, E=8): equal to plain; "
+          f"encode {w_ms[0]:.4f} ms (bound {bound(w_bytes[0], w_ops)[0]:.4f}),"
+          f" decode {w_ms[1]:.4f} ms (bound "
+          f"{bound(w_bytes[1], w_ops)[0]:.4f}); the copy of the rows "
+          f"{time_ms(lambda: w_rows.clone()):.4f} ms")
+    del w_rows, w_plan, w_args, w_out, w_dargs
+
     # K2/K3, remainder stream (generic encode_core: natural rows + rank)
     rem_sym = Hy.quantize(decompose(rem, rem_hier), HL._inv_q(q)).reshape(-1)
     B._K_CACHE.clear()
@@ -839,7 +890,6 @@ def main():
     rem_enc = (time_ms(lambda: B.encode_bands(*enc_args, **enc_kw)),
                time_ms(lambda: B.encode_bands_plain(*enc_args, **enc_kw), 2))
     k2_io += [enc_args, B.encode_bands(*enc_args, **enc_kw)]
-    k2_syms.append(enc_args[0].numel())
     with Recorder(B, "decode_bands") as dec:
         sym_k, _ = B.decode(rblob_k, 0, dev)
     with Recorder(B, "decode_bands", B.decode_bands_plain):
@@ -856,6 +906,45 @@ def main():
           f"encode {rem_enc[0]:.4f} ms (plain {rem_enc[1]:.4f}), decode "
           f"{rem_dec[0]:.4f} ms (plain {rem_dec[1]:.4f})")
 
+    # the rows each stream hands K2 are whole allocations: 16-byte aligned
+    # for the vector loads; a view one element off is refused, not run
+    for what, args in (("cf", k2_io[0]), ("remainder", k2_io[2])):
+        rows_in = args[0]
+        if rows_in.data_ptr() % 16:
+            raise AssertionError(f"K2 {what} rows are not 16-byte aligned")
+        buf = torch.empty(rows_in.numel() + 8, dtype=rows_in.dtype,
+                          device=dev)
+        off = buf[1:1 + rows_in.numel()].view(rows_in.shape)
+        off.copy_(rows_in)
+        try:
+            B.encode_bands(off, *args[1:])
+        except RuntimeError as e:
+            if "misaligned" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"K2 ran on misaligned {what} rows")
+        del buf, off
+    phase("phase 3 K2 alignment: the cf and remainder rows are 16-byte "
+          "aligned; a copy one element off raises (misaligned address)")
+
+    # every edge case of bfp.BAND_CASES (the CPU schedule test's): base,
+    # resid and the rows back bit-equal to the plain versions
+    for spec in B.BAND_CASES:
+        args, cnt_e, _ = B.band_case(spec, dev)
+        got = B.encode_bands(*args)
+        want = B.encode_bands_plain(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K2 differs from plain on {spec[0]}")
+        dargs = (*got, *args[1:5], cnt_e, *args[5:9],
+                 args[0].dtype == torch.int32)
+        back = B.decode_bands(*dargs)
+        if not (torch.equal(back, B.decode_bands_plain(*dargs))
+                and torch.equal(back, args[0])):
+            raise AssertionError(f"K3 differs from plain on {spec[0]}")
+    phase(f"phase 3 small K2/K3: the {len(B.BAND_CASES)} edge cases of "
+          "bfp.BAND_CASES (u16 and u32 rows, K=0, K+E=16/18/32, rband 0, "
+          "rank the identity, sb=16384 C=8, static cap) equal to plain")
+
     # wide rows (K+E > 16) and the small superblock (sb=256, C=2)
     wide = torch.from_numpy(
         (gen.standard_normal(256 * 32 * 4) * 5e4).astype(np.int32)).to(dev)
@@ -868,14 +957,34 @@ def main():
         raise AssertionError("K2/K3 wide rows at sb=256 differ")
     phase("phase 3 small K2/K3 wide rows (K=12, E=8) at sb=256, C=2: bytes "
           "and symbols equal")
-    # K2/K3 rows: the cf and the remainder stream of the main path together;
-    # operations ~3 lane operations per bit written (ballot, test, select)
-    # plus ~8 per symbol, counting the bits as the words the kernels return
-    ops2 = 8 * sum(k2_syms) + 96 * tensor_bytes(k2_io[1], k2_io[3]) // 4
+    # yardsticks that move the rows' bytes (not the same function): a copy
+    # of the rows K2 reads and of the rows K3 writes
+    yard = [(time_ms(lambda a=a: a[0].clone()),
+             time_ms(lambda o=o: o.clone()))
+            for a, o in ((k2_io[0], k3_io[1]), (k2_io[2], k3_io[3]))]
+    phase(f"phase 3 K2/K3 per stream, ms (ballot design, both streams: K2 "
+          f"{K2_K3_BEFORE[0]}, K3 {K2_K3_BEFORE[1]}): cf encode "
+          f"{cf_enc[0]:.4f} / decode {cf_dec[0]:.4f}, remainder encode "
+          f"{rem_enc[0]:.4f} / decode {rem_dec[0]:.4f}; yardsticks (a copy "
+          f"of the rows, not the same function): cf {yard[0][0]:.4f} / "
+          f"{yard[0][1]:.4f}, remainder {yard[1][0]:.4f} / {yard[1][1]:.4f}")
+    for line in bfp_ptxas(kernels.BUILD_LOG):
+        phase("phase 3 K2/K3 ptxas " + line)
+    # K2/K3 rows: the cf and the remainder stream of the main path together.
+    # Operations: ~250 lane operations per 32-symbol block for u16 rows
+    # (pairing, the 16x16 butterfly, one store a plane), ~500 for u32.
+    # Bytes: each input once and each output once; K3 reads only the
+    # residual words the data holds (cnt per plane and slot), not the
+    # whole band buffer.
+    ops2 = sum(a[0].numel() // 32 * (250 if a[0].dtype == torch.int16
+                                     else 500) for a in k2_io[0::2])
+    k3_bytes = sum(
+        tensor_bytes(a[0], *a[2:7], out) + 4 * a[10] * int(a[6].sum())
+        for a, out in zip(k3_io[0::2], k3_io[1::2]))
     report("bfp_encode", 0.0, cf_enc[0] + rem_enc[0], cf_enc[1] + rem_enc[1],
            tensor_bytes(k2_io), ops2)
     report("bfp_decode", 0.0, cf_dec[0] + rem_dec[0], cf_dec[1] + rem_dec[1],
-           tensor_bytes(k3_io), ops2)
+           k3_bytes, ops2)
     del k2_io, k3_io
     del pay, cw, rem, out_k, out_p, back_k, back_p, prow
     torch.cuda.empty_cache()

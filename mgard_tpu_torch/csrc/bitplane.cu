@@ -29,34 +29,13 @@
 // shift that overflows is undefined); every shift count stays in [0, 31].
 // nvcc runs with -fmad=false: d_b is one int-to-float conversion and one
 // add, d_b^2 one multiply, as in the plain version.
+#include "bits.cuh"
 #include "common.cuh"
 
 namespace {
 
 constexpr int NT = 256;  // 8 warps per block
 constexpr unsigned FULL = 0xFFFFFFFFu;
-
-// Self-inverse 32x32 bit-matrix transpose of z (bit k of output word t ==
-// bit t of input word k): the butterfly of lossless/bfx.py _bit_transpose32.
-__device__ __forceinline__ void bit_transpose32(unsigned (&z)[32]) {
-#pragma unroll
-  for (int st = 0; st < 5; ++st) {
-    const int s = 16 >> st;
-    const unsigned mk = st == 0   ? 0x0000FFFFu
-                        : st == 1 ? 0x00FF00FFu
-                        : st == 2 ? 0x0F0F0F0Fu
-                        : st == 3 ? 0x33333333u
-                                  : 0x55555555u;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      if ((i & s) == 0) {
-        const unsigned t = ((z[i] >> s) ^ z[i + s]) & mk;
-        z[i] ^= t << s;
-        z[i + s] ^= t;
-      }
-    }
-  }
-}
 
 // _int_quantize_f32 + _residue_f32 for one value: p = |v| 2^(fb - exp) ->
 // mag = round-half-away(p) clamped to lim, r = p - mag as float32. All
@@ -100,7 +79,7 @@ bitplane_encode_kernel(const float* __restrict__ v, const int* __restrict__ exp_
     quantize(v[k * m + j], exp, B - 1, lim, fx[k], r[k], sign);
     z[k] = fx[k] | (sign << sbit);
   }
-  bit_transpose32(z);
+  bit_transpose<32>(z);
   // plane rows: row 0 = bit sbit (signs); row B - t = bit t below B; at
   // B = 32 row 1 (bit 31 of the magnitude) is identically zero
   if (B == 32) planes[m + j] = 0u;

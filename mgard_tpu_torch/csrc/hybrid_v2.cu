@@ -282,8 +282,6 @@ hybrid_inv_v2_kernel(const uint16_t* __restrict__ pay,
   }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
 }  // namespace
 
 MGARD_EXPORT const char* mgard_cuda_error_string(int code) {
@@ -298,7 +296,7 @@ MGARD_EXPORT int hybrid_fwd_v2(const void* v, float inv_q, void* pay, void* cw,
                                void* stream) {
   const int CL = C * 32, H = Z / CL;
   if (H > MAX_H) return (int)cudaErrorInvalidValue;
-  if (!aligned16(v) || !aligned16(pay))
+  if (!mgard_aligned16(v) || !mgard_aligned16(pay))
     return (int)cudaErrorMisalignedAddress;
   dim3 grid(Y / 8, X / 8);
   hybrid_fwd_v2_kernel<<<grid, 32 * FWD_NB, 0, (cudaStream_t)stream>>>(
@@ -310,7 +308,7 @@ MGARD_EXPORT int hybrid_fwd_v2(const void* v, float inv_q, void* pay, void* cw,
 MGARD_EXPORT int hybrid_inv_v2(const void* pay, const void* rem, float q,
                                void* out, int X, int Y, int Z, int nl,
                                void* stream) {
-  if (!aligned16(pay) || !aligned16(out))
+  if (!mgard_aligned16(pay) || !mgard_aligned16(out))
     return (int)cudaErrorMisalignedAddress;
   dim3 grid(Y / 8, X / 8);
   hybrid_inv_v2_kernel<<<grid, 32 * INV_NB, 0, (cudaStream_t)stream>>>(

@@ -78,6 +78,7 @@ from .dtypes import (
     norm_type,
     np_dtype,
 )
+from .formats import ref_stream
 from .formats.metadata import FormatError, Metadata
 from .hierarchy import get_hierarchy
 from .lossless import bfp as _bfp, bfx as _bfx
@@ -888,8 +889,11 @@ def decompress(blob: bytes, config: Optional[Config] = None,
                device=None) -> Tuple[Optional[torch.Tensor],
                                      compress_status_type]:
     """Decompress a stream of either package onto ``device`` (default the
-    CUDA card). Returns (tensor, status)."""
+    CUDA card). Returns (tensor, status). A stream written by the reference
+    MGARD-X library raises NotImplementedError (not ported yet)."""
     device = resolve_device(device)
+    if ref_stream.sniff(bytes(blob[:8])):
+        _todo("reference-written streams", "ROADMAP queue 1 item 12")
     try:
         meta, off = Metadata.deserialize(blob)
     except (FormatError, struct.error):

@@ -7,10 +7,10 @@ headers, so a build takes seconds). The library goes to ``build/kernels/``
 at the root of the checkout, named by a hash of the sources and flags, so a
 changed source builds anew and an unchanged one is reused.
 
-Each C entry point launches its kernel (for K5/K6 and K10 a short chain of
-kernels; for a probe the variant it is asked for) on the stream it is given and returns ``cudaGetLastError()``;
-``launch`` raises on a nonzero code and only then counts the launch in
-``LAUNCHES``.
+Each C entry point launches its kernel (for K2/K3, K5/K6 and K10 a short
+chain of kernels; for a probe the variant it is asked for) on the stream
+it is given and returns ``cudaGetLastError()``; ``launch`` raises on a
+nonzero code and only then counts the launch in ``LAUNCHES``.
 Nothing here runs on import, and nothing falls back: a CUDA tensor either
 reaches its kernel or raises.
 """
@@ -39,13 +39,14 @@ _SIGNATURES = {
     "hybrid_fwd_v2": [_P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # pay, rem, q, out, X, Y, Z, nl, stream
     "hybrid_inv_v2": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
-    # rows, wide, rank, woff, rband, sb_off, base, resid, NB, C, sbc, K, E,
-    # stream
-    "bfp_encode": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
-    # base, resid, rank, woff, rband, sb_off, cnt, out, wide, NB, C, sbc, K,
-    # E, stream
-    "bfp_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
+    # rows, wide, rank, inv (scratch), woff, rband, sb_off, base, resid, NB,
+    # C, sbc, K, E, stream
+    "bfp_encode": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                    _P],
+    # base, resid, rank, inv (scratch), woff, rband, sb_off, cnt, out, wide,
+    # NB, C, sbc, K, E, stream
+    "bfp_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
+                   _I, _P],
     # sym, widths, boff, slen, offs, out, NB, sb, align, stream
     "bfx_encode": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     # words, widths, boff, slen, offs, sym, NB, sb, align, stream

@@ -11,9 +11,11 @@ Chunks wider than K+E ship verbatim as exceptions.
 
 Two CUDA kernels do the bit packing on the GPU: ``encode_bands`` (K2,
 csrc/bfp.cu) and ``decode_bands`` (K3). Both take natural-order chunk rows
-and the sort rank: the sort is a permutation of destinations, so no row
-gather is needed on either side. Each wrapper takes the plain version
-beside it for CPU tensors and launches its kernel for CUDA tensors.
+and the sort rank; on the card a thread owns a block of a sorted column
+and reads (or writes) its chunk through the inverse of rank, so the sort
+needs no row gather pass on either side. Each wrapper takes the plain
+version beside it for CPU tensors and launches its kernel for CUDA
+tensors.
 
 Packed words are int32 bit patterns and u16 payloads ``torch.int16`` bit
 patterns (torch lacks shifts and max on uint32/uint16 on the CPU).
@@ -183,6 +185,59 @@ def decode_bands_plain(base, resid2d, rank, woff, rband, sb_off, cnt_c,
     return nat if wide else nat.to(torch.int16)
 
 
+# Edge cases of K2/K3, run by the CPU schedule test and by chip_smoke.py on
+# the card: (name, row bits, K, E, sb, C, superblocks, chunk widths,
+# static-cap layout). Widths: "mixed" random in [0, w_max] with one
+# superblock of zero chunks first, "all" every width 0..w_max in shuffled
+# order, "one" a single width (rank is the identity), "low" at most K+2
+# (rband 0 on the planes above); w_max = min(K+E, row bits).
+BAND_CASES = (
+    ("u16 K=4 E=8 mixed", 16, 4, 8, 256, 2, 3, "mixed", False),
+    ("u16 K=0 (Kp=1)", 16, 0, 8, 256, 2, 2, "mixed", False),
+    ("u16 K+E=16 every width", 16, 8, 8, 512, 4, 2, "all", False),
+    ("u16 rows K+E=18", 16, 10, 8, 256, 2, 2, "mixed", False),
+    ("u32 K+E=32 every width", 32, 17, 15, 256, 2, 2, "all", False),
+    ("u32 K=12 E=8 C=1", 32, 12, 8, 256, 1, 2, "mixed", False),
+    ("u32 rows K+E=12", 32, 4, 8, 256, 2, 2, "mixed", False),
+    ("one width (rank identity)", 16, 3, 8, 256, 2, 2, "one", False),
+    ("low widths (rband 0)", 16, 5, 8, 256, 2, 2, "low", False),
+    ("sb=16384 C=8", 16, 3, 8, 16384, 8, 1, "mixed", False),
+    ("static-cap layout", 16, 8, 8, 512, 4, 2, "mixed", True),
+)
+
+
+def band_case(spec, device="cpu", seed: int = 0):
+    """Inputs of one BAND_CASES entry: (encode_bands arguments, cnt,
+    resid_rows). Every chunk's width stays within K+E and the row width,
+    so K3 gives the rows back."""
+    _name, bits, K, E, sb, C, nsb, widths, static = spec
+    rng = np.random.default_rng(seed)
+    sbc = sb // C
+    NC = nsb * sbc
+    wmax = min(K + E, bits)
+    if widths == "all":
+        cw = rng.permutation(np.arange(NC) % (wmax + 1))
+    elif widths == "one":
+        cw = np.full(NC, min(K + 3, wmax))
+    else:
+        cw = rng.integers(0, (K + 3 if widths == "low" else wmax) + 1, NC)
+        if widths == "mixed":
+            cw[:sbc] = 0
+    sym = rng.integers(0, 1 << 32, (NC, C * BS), np.uint64)
+    sym &= (np.uint64(1) << cw[:, None].astype(np.uint64)) - np.uint64(1)
+    top = np.where(cw > 0, np.uint64(1) << np.maximum(cw - 1, 0).astype(
+        np.uint64), np.uint64(0))
+    sym[np.arange(NC), rng.integers(0, C * BS, NC)] |= top  # width exactly cw
+    rows = (sym.astype(np.uint16).view(np.int16) if bits == 16
+            else sym.astype(np.uint32).view(np.int32))
+    crl = torch.from_numpy(np.clip(cw - K, 0, E).astype(np.int32)).to(device)
+    rank, cnt, rband, woff, sb_off, resid_rows, alloc_rows = _zz_plan(
+        crl, E, sb, C, static)
+    args = (torch.from_numpy(rows).to(device), rank, woff, rband, sb_off, K,
+            E, sb, C, alloc_rows)
+    return args, cnt, int(resid_rows)
+
+
 def _check_plan(rank, woff, rband, sb_off, NSB, sbc, E, device):
     check = kernels.check_tensor
     check("rank", rank, _I32, (NSB, sbc), device)
@@ -195,7 +250,8 @@ def encode_bands(rows, rank, woff, rband, sb_off, K: int, E: int, sb: int,
                  C: int, alloc_rows: int):
     """K2 wrapper (replaces mgard_tpu/lossless/bfp.py _encode_pallas), both
     modes: the cf stream (u16 rows) and the generic stream (u16 or u32
-    rows). Same outputs as encode_bands_plain."""
+    rows). Same outputs as encode_bands_plain. On the card rows must be
+    16-byte aligned (vector loads): a misaligned view raises."""
     dev = rows.device
     if rows.dtype not in (torch.int16, _I32) or rows.ndim != 2:
         raise ValueError(f"rows: expected int16/int32 (NC, 32C), got "
@@ -216,12 +272,17 @@ def encode_bands(rows, rank, woff, rband, sb_off, K: int, E: int, sb: int,
                                   C, alloc_rows)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    base = torch.zeros((NSB, max(K, 1), C, sbc), dtype=_I32, device=dev)
+    # the kernel writes every base word when K > 0, and of resid only the
+    # band rows of this plan
+    base = (torch.empty if K else torch.zeros)(
+        (NSB, max(K, 1), C, sbc), dtype=_I32, device=dev)
     resid = torch.zeros((alloc_rows, LANES), dtype=_I32, device=dev)
+    inv = torch.empty_like(rank)
     kernels.launch("bfp_encode", rows.data_ptr(), int(rows.dtype == _I32),
-                   rank.data_ptr(), woff.data_ptr(), rband.data_ptr(),
-                   sb_off.data_ptr(), base.data_ptr(), resid.data_ptr(),
-                   NC * C, C, sbc, K, E, kernels.stream(dev))
+                   rank.data_ptr(), inv.data_ptr(), woff.data_ptr(),
+                   rband.data_ptr(), sb_off.data_ptr(), base.data_ptr(),
+                   resid.data_ptr(), NC * C, C, sbc, K, E,
+                   kernels.stream(dev))
     return base, resid
 
 
@@ -249,10 +310,12 @@ def decode_bands(base, resid2d, rank, woff, rband, sb_off, cnt_c, K: int,
         raise ValueError(f"no kernel for device {dev}")
     out = torch.empty((NSB * sbc, C * BS),
                       dtype=_I32 if wide else torch.int16, device=dev)
+    inv = torch.empty_like(rank)
     kernels.launch("bfp_decode", base.data_ptr(), resid2d.data_ptr(),
-                   rank.data_ptr(), woff.data_ptr(), rband.data_ptr(),
-                   sb_off.data_ptr(), cnt_c.data_ptr(), out.data_ptr(),
-                   int(wide), NSB * sb, C, sbc, K, E, kernels.stream(dev))
+                   rank.data_ptr(), inv.data_ptr(), woff.data_ptr(),
+                   rband.data_ptr(), sb_off.data_ptr(), cnt_c.data_ptr(),
+                   out.data_ptr(), int(wide), NSB * sb, C, sbc, K, E,
+                   kernels.stream(dev))
     return out
 
 
