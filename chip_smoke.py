@@ -13,9 +13,12 @@ Phases (each prints a line; any failure exits nonzero before the result):
      on ten small shapes (Z = 1024, C = 1, 2, 16, X and Y not powers of
      two, nl 1-3) and a field with a width-32 chunk, and at 512^3 timed at
      nl 1, 2 and 3, beside PyTorch casts that move the same bytes; K10/K11
-     (the fused transform+pack pair) at 512^3 with the main path's K, at
+     (the fused transform+pack pair) at 512^3 with the main path's K (with
+     their ptxas lines, the clusters the card holds at each Z the gate
+     admits, and PyTorch's casts of the field as yardsticks), at
      (8,128,128), (16,256,256), (8,128,768) and (8,128,1024) with K=1/E=15
-     and K=8/E=8, and on a field with one value over the u16 budget;
+     and K=8/E=8, on a field with one value over the u16 budget, and K11
+     on residual words made random above every chunk's width;
      K2/K3 on the cf and remainder streams of the main path (timed per
      stream beside a copy of the rows that moves the same bytes, with
      their ptxas lines), on the edge cases of bfp.BAND_CASES, and on wide
@@ -130,9 +133,10 @@ REPO_KERNELS = {
     "hybrid_unpack_v3": ("mgard_tpu_torch/csrc/hybrid_v3.cu",
                          "mgard_tpu/ops/hybrid.py:1072"),
 }
-# K10/K11 ms at 512^3 on one H100 80GB HBM3 at 700 W before K1/K4 left the
-# shared tile walk of tile8.cuh (PERF.md's kernel table)
-K10_K11_BEFORE = (3.2725, 3.5967)
+# K10/K11 ms at 512^3 in their three-kernel design (a shared-tile walk, a
+# u16 scratch payload, warp-ballot packing), measured just before the
+# cluster design replaced it (PERF.md), one H100 80GB HBM3 at 700 W
+K10_K11_BEFORE = ((3.2204, 3.2288), (3.5800, 3.6050))
 # K2/K3 ms at 512^3, cf and remainder stream together, on the same card
 # in their warp-ballot design (PERF.md's kernel table)
 K2_K3_BEFORE = (1.3725, 1.3140)
@@ -158,15 +162,13 @@ def phase(msg):
     print(msg, flush=True)
 
 
-def bfp_ptxas(log):
-    """ptxas -v lines of K2/K3 (csrc/bfp.cu): per kernel, its registers,
-    barriers, stack and spills."""
+def ptxas_lines(log, names):
+    """ptxas -v lines of the named kernels: per kernel, its registers,
+    barriers, shared memory, stack and spills."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in ("bfp_encode_kernel", "bfp_decode_kernel",
-                                     "invert_rank_kernel") if k in line),
-                        None)
+            name = next((k for k in names if k in line), None)
             if name and "ItE" in line:  # the template's row type
                 name += "<u16>"
             elif name and "IjE" in line:
@@ -968,7 +970,8 @@ def main():
           f"{rem_enc[0]:.4f} / decode {rem_dec[0]:.4f}; yardsticks (a copy "
           f"of the rows, not the same function): cf {yard[0][0]:.4f} / "
           f"{yard[0][1]:.4f}, remainder {yard[1][0]:.4f} / {yard[1][1]:.4f}")
-    for line in bfp_ptxas(kernels.BUILD_LOG):
+    for line in ptxas_lines(kernels.BUILD_LOG, (
+            "bfp_encode_kernel", "bfp_decode_kernel", "invert_rank_kernel")):
         phase("phase 3 K2/K3 ptxas " + line)
     # K2/K3 rows: the cf and the remainder stream of the main path together.
     # Operations: ~250 lane operations per 32-symbol block for u16 rows
@@ -1029,10 +1032,39 @@ def main():
             and torch.equal(cw_over[:3], clean[:3])):
         raise AssertionError("K10: a code over 16 bits must set its tile's "
                              "1024 widths to 32 and leave the others")
+    # K11's crl guard: random words wherever a sorted column's chunk has
+    # crl <= the residual plane (a deserialized resid need not hold zeros
+    # there) leave the field unchanged
+    vs = torch.from_numpy(
+        (gen.standard_normal((16, 256, 256)) * 0.02).astype(np.float32))
+    (kb, kr, _, krem), crl, oi = check_v3(vs.to(dev), 1, 3, 8, 1e-3)
+    scrl = crl.sort(dim=1, descending=True, stable=True).values
+    dead = (scrl[:, None, None, :] <= torch.arange(8, device=dev)[
+        None, :, None, None]).expand(crl.shape[0], 8, kb.shape[2], 1024)
+    junk = torch.from_numpy(gen.integers(
+        -2**31, 2**31, dead.shape, dtype=np.int64).astype(np.int32)).to(dev)
+    rg = torch.where(dead, junk, kr.view(dead.shape)).view(kr.shape)
+    args = (kb, crl, rg, krem, HL._f32(1e-3), 1, 3, 8, (16, 256, 256))
+    og = Hy.unpack_inverse_v3(*args)
+    if not (0 < int(dead.sum()) < dead.numel() and torch.equal(og, oi)
+            and torch.equal(og, Hy.unpack_inverse_v3_plain(*args))):
+        raise AssertionError("K11: words above a chunk's width changed the "
+                             f"field ({int(dead.sum())} of {dead.numel()} "
+                             "residual words random)")
     phase("phase 3 small K10/K11 at (8,128,128), (16,256,256), (8,128,768), "
           "(8,128,1024) with (K, E, nl) = (1,15,3), (8,8,3), (8,8,2), "
           "(3,8,1): equal to plain; one value over the u16 budget sets its "
-          "tile's widths to 32 only")
+          "tile's widths to 32 only; K11 with random residual words above "
+          f"every chunk's width ({int(dead.sum())} of {dead.numel()}) equal "
+          "to plain and to the field of the clean words")
+    del kb, kr, krem, crl, oi, rg, og, junk, dead, scrl
+    for line in ptxas_lines(kernels.BUILD_LOG, ("v3_pack_kernel",
+                                                "v3_unpack_kernel")):
+        phase("phase 3 K10/K11 ptxas " + line)
+    phase("phase 3 K10/K11 clusters of 16 blocks the card holds at once "
+          "(cudaOccupancyMaxActiveClusters, K10 / K11): " + ", ".join(
+              "Z={} {} / {}".format(z, *Hy.v3_max_active_clusters(z))
+              for z in (128, 256, 512, 768, 1024)))
     k, crl3, oi = check_v3(v, 3, K, E, q)
     if float((oi - v).abs().max()) > TOL:
         raise AssertionError("K10/K11 round trip at 512^3 breaks the bound")
@@ -1044,21 +1076,32 @@ def main():
            time_ms(lambda: Hy.local_transform_pack_v3(v, inv_q, 3, K, E)),
            time_ms(lambda: Hy.transform_pack_v3(v, inv_q, 3, K, E), 2),
            tensor_bytes(v, k), ops3)
+    # K11 reads a residual word only where the chunk's crl is over its
+    # plane: C words for each of its crl planes, not the whole buffer
     report("hybrid_unpack_v3", 0.0,
            time_ms(lambda: Hy.unpack_inverse_v3(k[0], crl3, k[1], k[3], qf, 3,
                                                 K, E, padded)),
            time_ms(lambda: Hy.unpack_inverse_v3_plain(
                k[0], crl3, k[1], k[3], qf, 3, K, E, padded), 2),
-           tensor_bytes(k[0], crl3, k[1], k[3], oi), ops3)
+           tensor_bytes(k[0], crl3, k[3], oi)
+           + 4 * k[0].shape[2] * int(crl3.sum()), ops3)
+    # yardsticks that move about the same bytes (not the same function)
+    half = v.to(torch.float16)
+    cast_f = time_ms(lambda: v.to(torch.float16))
+    cast_i = time_ms(lambda: half.to(torch.float32))
+    del half
+    (b10, t10), (b11, t11) = K10_K11_BEFORE
+    ms10, ms11 = rows["hybrid_pack_v3"]["ms"], rows["hybrid_unpack_v3"]["ms"]
     phase(f"phase 3 K10/K11 at 512^3, K={K} E={E}: equal to plain; K10 "
-          f"{rows['hybrid_pack_v3']['ms']:.4f} ms against K1 + K2 (cf) "
+          f"{ms10:.4f} ms against K1 + K2 (cf) "
           f"{rows['hybrid_fwd_v2']['ms'] + cf_enc[0]:.4f} ms, K11 "
-          f"{rows['hybrid_unpack_v3']['ms']:.4f} ms against K3 (cf) + K4 "
-          f"{cf_dec[0] + rows['hybrid_inv_v2']['ms']:.4f} ms; K10/K11 "
-          f"against {K10_K11_BEFORE[0]} / {K10_K11_BEFORE[1]} ms before "
-          f"K1/K4 left tile8.cuh (unchanged): "
-          f"{rows['hybrid_pack_v3']['ms'] / K10_K11_BEFORE[0]:.4f}x / "
-          f"{rows['hybrid_unpack_v3']['ms'] / K10_K11_BEFORE[1]:.4f}x")
+          f"{ms11:.4f} ms against K3 (cf) + K4 "
+          f"{cf_dec[0] + rows['hybrid_inv_v2']['ms']:.4f} ms; yardsticks: "
+          f"PyTorch's float32 -> float16 cast of the field {cast_f:.4f} ms, "
+          f"float16 -> float32 {cast_i:.4f} ms; the three-kernel design "
+          f"{b10}-{t10} / {b11}-{t11} ms (PERF.md): "
+          f"{b10 / ms10:.4f}-{t10 / ms10:.4f}x / "
+          f"{b11 / ms11:.4f}-{t11 / ms11:.4f}x faster")
     del k, crl3, oi, clean, cw_over
     torch.cuda.empty_cache()
 

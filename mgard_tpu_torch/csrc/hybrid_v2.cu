@@ -37,7 +37,6 @@
 // (K4: from rem to registers, loaded a tile ahead).
 #include "common.cuh"
 #include "line8.cuh"
-#include "tile8.cuh"
 
 namespace {
 
@@ -47,36 +46,9 @@ constexpr int RUNS = 512;   // (line, c) payload runs of a tile
 constexpr int FWD_NB = 16;  // z-blocks a tile of K1
 constexpr int INV_NB = 8;   // z-blocks a tile of K4
 
-// Row base (element index) of tile line `line` = 8*xi + y.
-__device__ __forceinline__ size_t row_of(int x0, int y0, int Y, int Z,
-                                         int line) {
-  return ((size_t)(x0 + (line >> 3)) * Y + y0 + (line & 7)) * Z;
-}
-
-__device__ __forceinline__ void load_line(const float* p, float (&l)[8]) {
-  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  l[0] = u.x; l[1] = u.y; l[2] = u.z; l[3] = u.w;
-  l[4] = v.x; l[5] = v.y; l[6] = v.z; l[7] = v.w;
-}
-
 // The low halves of two codes as one word (a in bits 0-15).
 __device__ __forceinline__ unsigned pack2(unsigned a, unsigned b) {
   return __byte_perm(a, b, 0x5410);
-}
-
-// K1 epilogue of one line: its corners (if `corner`, at the chain positions
-// in cmask) to rem_at[0..k), every other value quantized and zigzagged into
-// zz (a corner's code is 0, as in the plain version).
-__device__ __forceinline__ void line_codes(const float (&l)[8], bool corner,
-                                           unsigned cmask, float inv_q,
-                                           float* rem_at, unsigned (&zz)[8]) {
-#pragma unroll
-  for (int z = 0; z < 8; ++z) {
-    const bool c = corner && ((cmask >> z) & 1u);
-    zz[z] = c ? 0u : quantize_zigzag(l[z], inv_q);
-    if (c) rem_at[__popc(cmask & ((1u << z) - 1u))] = l[z];
-  }
 }
 
 // Max of the code widths of one line into wrow[h], one shared atomic per
@@ -184,11 +156,11 @@ __global__ void __launch_bounds__(32 * INV_NB)
 hybrid_inv_v2_kernel(const uint16_t* __restrict__ pay,
                      const float* __restrict__ rem, float q,
                      float* __restrict__ out, int X, int Y, int Z, int nl) {
-  constexpr int NB = INV_NB, NT = 32 * NB, RPT = RUNS / NT, CH = 2 * NB;
+  constexpr int NB = INV_NB, NT = 32 * NB, RPT = RUNS / NT;
   // The payload stage (two halves of NB*RUNS codes) and the output tile (64
-  // lines of CH float4s): 32 KB.
+  // lines of 2*NB float4s): 32 KB.
   __shared__ __align__(16) uint16_t stage[2][NB * RUNS];
-  __shared__ float4 ob[LINES * CH];
+  __shared__ float4 ob[LINES * 2 * NB];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int xi = lane >> 2, j = lane & 3;
   const int x0 = blockIdx.y * 8, y0 = blockIdx.x * 8;
@@ -212,16 +184,11 @@ hybrid_inv_v2_kernel(const uint16_t* __restrict__ pay,
       for (int q8 = 0; q8 < NB / 8; ++q8) run[i][q8] = __ldg(src + q8);
     }
     const int jz = t * NB + warp;
-    const float* rem_a = rem + rem_index(nl, k, RY, RZ, x0, y0, xi, 2 * j, jz, 0);
-    const float* rem_b =
-        rem + rem_index(nl, k, RY, RZ, x0, y0, xi, 2 * j + 1, jz, 0);
-#pragma unroll
-    for (int z = 0; z < 8; ++z) {
-      const int at = __popc(cmask & ((1u << z) - 1u));
-      const bool on = (cmask >> z) & 1u;
-      cra[z] = ca && on ? __ldg(rem_a + at) : 0.f;
-      crb[z] = cb && on ? __ldg(rem_b + at) : 0.f;
-    }
+    line_corners(rem + rem_index(nl, k, RY, RZ, x0, y0, xi, 2 * j, jz, 0), ca,
+                 cmask, cra);
+    line_corners(
+        rem + rem_index(nl, k, RY, RZ, x0, y0, xi, 2 * j + 1, jz, 0), cb,
+        cmask, crb);
   };
   fetch(0);
   for (int t = 0; t < T; ++t) {
@@ -261,24 +228,9 @@ hybrid_inv_v2_kernel(const uint16_t* __restrict__ pay,
       if (!(cb && on)) l.b[z] = unzigzag_dequantize((wb[z >> 1] >> sh) & 0xFFFFu, q);
     }
     recompose_lines(l, xi, j, nl);
-    // The tile leaves through shared memory so that a warp stores whole
-    // rows of 8*NB floats: 16-byte chunk q of line L sits at q ^ (L/2 mod
-    // 8), which spreads a warp's writes (lines 2*lane, chunks 2*warp and
-    // 2*warp + 1) over all banks.
-    const int sw = lane & 7;
-    float4* oa = ob + (2 * lane) * CH;
-    oa[(2 * warp) ^ sw] = make_float4(l.a[0], l.a[1], l.a[2], l.a[3]);
-    oa[(2 * warp + 1) ^ sw] = make_float4(l.a[4], l.a[5], l.a[6], l.a[7]);
-    oa[CH + ((2 * warp) ^ sw)] = make_float4(l.b[0], l.b[1], l.b[2], l.b[3]);
-    oa[CH + ((2 * warp + 1) ^ sw)] = make_float4(l.b[4], l.b[5], l.b[6], l.b[7]);
+    stage_tile<NB>(ob, l, warp, lane);
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < LINES * CH / NT; ++i) {
-      const int e = threadIdx.x + i * NT, L = e / CH, c = e % CH;
-      __stcs(reinterpret_cast<float4*>(out + row_of(x0, y0, Y, Z, L) +
-                                       8 * NB * t) + c,
-             ob[L * CH + (c ^ ((L >> 1) & 7))]);
-    }
+    store_tile<NB>(ob, out + row_of(x0, y0, Y, Z, 0) + 8 * NB * t, Y, Z);
   }
 }
 

@@ -1,8 +1,9 @@
 // The 8^3 local stencil of the hybrid front end on z lines held in
-// registers (K1/K4, hybrid_v2.cu). One warp holds one 8^3 block: lane
-// 4*xi + j holds the two z lines (xi, y = 2j) ("a") and (xi, y = 2j + 1)
-// ("b"), eight values each. Every level-axis interpolation pass of the
-// plain version (ops/hybrid.py::_interp_pass) becomes
+// registers (K1/K4, hybrid_v2.cu; K10/K11, hybrid_v3.cu). One warp holds
+// one 8^3 block: lane 4*xi + j holds the two z lines (xi, y = 2j) ("a")
+// and (xi, y = 2j + 1) ("b"), eight values each. Every level-axis
+// interpolation pass of the plain version (ops/hybrid.py::_interp_pass)
+// becomes
 //   x: two shuffles per value, from lanes 4*lx + j and 4*rx + j;
 //   y: at most two shuffles, from the lanes holding the neighbour lines;
 //   z: register arithmetic along the line.
@@ -161,6 +162,80 @@ __device__ __forceinline__ void recompose_lines(Lines& x, int xi, int j,
   if (nl > 2) recompose_level<2>(x, xi, j);
   if (nl > 1) recompose_level<1>(x, xi, j);
   recompose_level<0>(x, xi, j);
+}
+
+// Loads and stores around the line walk. A thread block owns the 8x8 (x,
+// y) column of 8-blocks at (x0, y0); its tile line 8*xi + y is the field
+// row (x0 + xi, y0 + y), whose element base row_of gives.
+__device__ __forceinline__ size_t row_of(int x0, int y0, int Y, int Z,
+                                         int line) {
+  return ((size_t)(x0 + (line >> 3)) * Y + y0 + (line & 7)) * Z;
+}
+
+// The 8 floats (32 bytes, 16-byte aligned) of one line of one 8^3 block.
+__device__ __forceinline__ void load_line(const float* p, float (&l)[8]) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  l[0] = u.x; l[1] = u.y; l[2] = u.z; l[3] = u.w;
+  l[4] = v.x; l[5] = v.y; l[6] = v.z; l[7] = v.w;
+}
+
+// Forward epilogue of one line (K1, K10): its corners (if `corner`, at the
+// chain positions in cmask) to rem_at[0..k), every other value quantized
+// and zigzagged into zz (a corner's code is 0, as in the plain version).
+__device__ __forceinline__ void line_codes(const float (&l)[8], bool corner,
+                                           unsigned cmask, float inv_q,
+                                           float* rem_at, unsigned (&zz)[8]) {
+#pragma unroll
+  for (int z = 0; z < 8; ++z) {
+    const bool c = corner && ((cmask >> z) & 1u);
+    zz[z] = c ? 0u : quantize_zigzag(l[z], inv_q);
+    if (c) rem_at[__popc(cmask & ((1u << z) - 1u))] = l[z];
+  }
+}
+
+// Inverse prologue of one line (K4, K11): its corner values from
+// rem_at[0..k) (if `corner`), 0 elsewhere.
+__device__ __forceinline__ void line_corners(const float* rem_at, bool corner,
+                                             unsigned cmask, float (&cr)[8]) {
+#pragma unroll
+  for (int z = 0; z < 8; ++z) {
+    const bool on = corner && ((cmask >> z) & 1u);
+    cr[z] = on ? __ldg(rem_at + __popc(cmask & ((1u << z) - 1u))) : 0.f;
+  }
+}
+
+// The inverse's output tile (K4, K11: NB z-blocks, warp w holding z-block
+// w) leaves through shared memory ob (64 lines of 2*NB float4s) so that a
+// warp stores whole rows of 8*NB floats: 16-byte chunk q of line L sits at
+// q ^ (L/2 mod 8), which spreads a warp's writes (lines 2*lane, chunks
+// 2*warp and 2*warp + 1) over all banks. The caller synchronizes between
+// stage_tile and store_tile, and before ob is staged again.
+template <int NB>
+__device__ __forceinline__ void stage_tile(float4* ob, const Lines& l,
+                                           int warp, int lane) {
+  constexpr int CH = 2 * NB;
+  const int sw = lane & 7;
+  float4* oa = ob + (2 * lane) * CH;
+  oa[(2 * warp) ^ sw] = make_float4(l.a[0], l.a[1], l.a[2], l.a[3]);
+  oa[(2 * warp + 1) ^ sw] = make_float4(l.a[4], l.a[5], l.a[6], l.a[7]);
+  oa[CH + ((2 * warp) ^ sw)] = make_float4(l.b[0], l.b[1], l.b[2], l.b[3]);
+  oa[CH + ((2 * warp + 1) ^ sw)] = make_float4(l.b[4], l.b[5], l.b[6], l.b[7]);
+}
+
+// The staged tile to out, which points at line 0's first element of the
+// tile; streaming stores (the field is not read again).
+template <int NB>
+__device__ __forceinline__ void store_tile(const float4* ob, float* out,
+                                           int Y, int Z) {
+  constexpr int CH = 2 * NB, NT = 32 * NB;
+#pragma unroll
+  for (int i = 0; i < 64 * CH / NT; ++i) {
+    const int e = threadIdx.x + i * NT, L = e / CH, c = e % CH;
+    __stcs(reinterpret_cast<float4*>(
+               out + ((size_t)(L >> 3) * Y + (L & 7)) * Z) + c,
+           ob[L * CH + (c ^ ((L >> 1) & 7))]);
+  }
 }
 
 }  // namespace

@@ -1,6 +1,9 @@
 // The in-block 8-point chains of the hybrid front end, shared by K1/K4
-// (hybrid_v2.cu) and K7/K8 (hybrid.cu): per axis 8 -> 5 -> 3 -> 2 over
-// in-block positions {0..7} -> {0,2,4,6,7} -> {0,4,7} -> {0,7}.
+// (hybrid_v2.cu), K10/K11 (hybrid_v3.cu) and K7/K8 (hybrid.cu): per axis
+// 8 -> 5 -> 3 -> 2 over in-block positions {0..7} -> {0,2,4,6,7} -> {0,4,7}
+// -> {0,7}; and the quantizer and remainder index of the z-grouped front
+// ends (K1/K4, K10/K11). Every float operation is one rounded IEEE f32
+// operation in the order of the plain versions in ops/hybrid.py.
 #pragma once
 
 namespace {
@@ -46,6 +49,29 @@ __device__ __forceinline__ bool coeff3(int lvl, int px, int py, int pz) {
 // Index of corner position p among the remainder columns of chain nl.
 __device__ __forceinline__ int rem_col(int nl, int p) {
   return __popc(chain_mask(nl) & ((1u << p) - 1u));
+}
+
+// Round half away from zero of val*inv_q, then zigzag (u32 bit pattern).
+__device__ __forceinline__ unsigned quantize_zigzag(float val, float inv_q) {
+  const float t = __fmul_rn(val, inv_q);
+  const float h = t < 0.f ? __fsub_rn(t, 0.5f) : __fadd_rn(t, 0.5f);
+  const int sym = __float2int_rz(h);
+  return ((unsigned)sym << 1) ^ (unsigned)(sym >> 31);
+}
+
+// Dequantized value of a zigzag code.
+__device__ __forceinline__ float unzigzag_dequantize(unsigned zz, float q) {
+  const int sym = (int)(zz >> 1) ^ -(int)(zz & 1u);
+  return __fmul_rn(__int2float_rn(sym), q);
+}
+
+// Flat index of corner (xi, yi, c) of z-block jz of the 8x8 (x, y) column
+// at (x0, y0) in the compact remainder (RY, RZ: its two minor extents).
+__device__ __forceinline__ size_t rem_index(int nl, int k, int RY, int RZ,
+                                            int x0, int y0, int xi, int yi,
+                                            int jz, int c) {
+  return ((size_t)((x0 >> 3) * k + rem_col(nl, xi)) * RY + (y0 >> 3) * k +
+          rem_col(nl, yi)) * RZ + jz * k + rem_col(nl, c);
 }
 
 }  // namespace

@@ -7,7 +7,7 @@ headers, so a build takes seconds). The library goes to ``build/kernels/``
 at the root of the checkout, named by a hash of the sources and flags, so a
 changed source builds anew and an unchanged one is reused.
 
-Each C entry point launches its kernel (for K2/K3, K5/K6 and K10 a short
+Each C entry point launches its kernel (for K2/K3 and K5/K6 a short
 chain of kernels; for a probe the variant it is asked for) on the stream
 it is given and returns ``cudaGetLastError()``; ``launch`` raises on a
 nonzero code and only then counts the launch in ``LAUNCHES``.
@@ -57,10 +57,8 @@ _SIGNATURES = {
     "hybrid_inv": [_P, _P, _F, _P, _I, _I, _I, _I, _P],
     # v, exp, planes, emax, esq, m, B, stream
     "bitplane_encode": [_P, _P, _P, _P, _P, _L, _I, _P],
-    # v, inv_q, pay (scratch), rank (scratch), base, resid, cw, rem, X, Y, Z,
-    # nl, K, E, stream
-    "hybrid_pack_v3": [_P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P],
+    # v, inv_q, base, resid, cw, rem, X, Y, Z, nl, K, E, stream
+    "hybrid_pack_v3": [_P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # base, crl, resid, rem, q, out, X, Y, Z, nl, K, E, stream
     "hybrid_unpack_v3": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
     # the layout probes P1-P3 (csrc/probes.cu), each with a variant number:
@@ -166,6 +164,9 @@ def lib():
             fn.restype = ctypes.c_int
         L.mgard_cuda_error_string.argtypes = [ctypes.c_int]
         L.mgard_cuda_error_string.restype = ctypes.c_char_p
+        # Z, int[2] out: a query, not a launch
+        L.hybrid_v3_max_clusters.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        L.hybrid_v3_max_clusters.restype = ctypes.c_int
         _lib = L
     return _lib
 

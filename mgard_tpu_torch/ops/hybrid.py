@@ -28,6 +28,7 @@ patterns: torch has too few uint16 operators on the CPU.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import numpy as np
@@ -427,7 +428,7 @@ def local_transform_pack_v3(v, inv_q: float, nl: int, K: int, E: int):
     """K10 wrapper (replaces mgard_tpu/ops/hybrid.py
     local_transform_pack_v3): field -> banded BFP payload, same outputs as
     transform_pack_v3. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel chain (widths, rank, pack)."""
+    launches the kernel (one pass, a cluster of 16 blocks per tile)."""
     (X, Y, Z), rem_shape, NSB = _v3_geometry(v.shape, nl, K, E)
     if K < 1:
         raise ValueError("the fused pack needs at least one base plane")
@@ -438,17 +439,14 @@ def local_transform_pack_v3(v, inv_q: float, nl: int, K: int, E: int):
         raise ValueError(f"no kernel for device {v.device}")
     C, _, sbc, _, CAP, _ = _v3_geom(Z, E)
     dev = v.device
-    # every word of base and resid is written by the pack pass
+    # every word of base and resid is written by the kernel
     base = torch.empty((NSB, K, C, sbc), dtype=torch.int32, device=dev)
     resid = torch.empty((NSB * CAP, 128), dtype=torch.int32, device=dev)
     cw = torch.empty((NSB, sbc), dtype=torch.int32, device=dev)
     rem = torch.empty(rem_shape, dtype=torch.float32, device=dev)
-    pay = torch.empty((NSB * sbc, Z), dtype=torch.int16, device=dev)
-    rank = torch.empty((NSB, sbc), dtype=torch.int32, device=dev)
     kernels.launch("hybrid_pack_v3", v.data_ptr(), float(np.float32(inv_q)),
-                   pay.data_ptr(), rank.data_ptr(), base.data_ptr(),
-                   resid.data_ptr(), cw.data_ptr(), rem.data_ptr(), X, Y, Z,
-                   nl, K, E, kernels.stream(dev))
+                   base.data_ptr(), resid.data_ptr(), cw.data_ptr(),
+                   rem.data_ptr(), X, Y, Z, nl, K, E, kernels.stream(dev))
     return base, resid, cw, rem
 
 
@@ -475,6 +473,16 @@ def unpack_inverse_v3(base, crl, resid, rem, q: float, nl: int, K: int,
                    resid.data_ptr(), rem.data_ptr(), float(np.float32(q)),
                    out.data_ptr(), X, Y, Z, nl, K, E, kernels.stream(dev))
     return out
+
+
+def v3_max_active_clusters(Z: int):
+    """(K10, K11): how many of the kernels' 16-block clusters the current
+    CUDA card holds at once at depth Z (cudaOccupancyMaxActiveClusters)."""
+    out = (ctypes.c_int * 2)()
+    rc = kernels.lib().hybrid_v3_max_clusters(Z, out)
+    if rc:
+        raise RuntimeError(f"hybrid_v3_max_clusters: CUDA error {rc}")
+    return out[0], out[1]
 
 
 # ----------------------------------------------------------------------
