@@ -9,7 +9,13 @@ Phases (each prints a line; any failure exits nonzero before the result):
   3. each kernel against its plain PyTorch version on the card, at the
      512^3 geometries of the main path and of Hybrid+BFX (K7/K8 also at
      8192^2, and all at a few small geometries) and, for K9, at the 384^3
-     MDR field's finest-level stream, with times from CUDA events; K1/K4
+     MDR field's finest-level stream, with times from CUDA events (K9 also
+     per level of one MDRefactor); K7/K8 at 512^3 timed at nl 1, 2 and 3
+     (with their ptxas lines, PyTorch's casts of the same bytes and the
+     copies around K7 on the Hybrid+BFX compress), at 8192^2 with its
+     bound, at eight small shapes (a partial 2D group, a ragged last tile,
+     z walks split into segments), refusing views one element off 16-byte
+     alignment while compress of such a view holds its bound; K1/K4
      on ten small shapes (Z = 1024, C = 1, 2, 16, X and Y not powers of
      two, nl 1-3) and a field with a width-32 chunk, and at 512^3 timed at
      nl 1, 2 and 3, beside PyTorch casts that move the same bytes; K10/K11
@@ -137,6 +143,12 @@ REPO_KERNELS = {
 # u16 scratch payload, warp-ballot packing), measured just before the
 # cluster design replaced it (PERF.md), one H100 80GB HBM3 at 700 W
 K10_K11_BEFORE = ((3.2204, 3.2288), (3.5800, 3.6050))
+# K7/K8 ms at 512^3, nl = 3, and at 8192^2 in their shared-tile design (a
+# 256-thread block over a 4096-element tile, a barrier after every pass),
+# measured just before the register-line design replaced it (PERF.md), one
+# H100 80GB HBM3 at 700 W
+K7_K8_BEFORE = ((2.2413, 2.2438), (2.8794, 2.8891))
+K7_K8_BEFORE_8192 = ((1.0034, 1.0112), (1.3290, 1.3391))
 # K2/K3 ms at 512^3, cf and remainder stream together, on the same card
 # in their warp-ballot design (PERF.md's kernel table)
 K2_K3_BEFORE = (1.3725, 1.3140)
@@ -173,6 +185,9 @@ def ptxas_lines(log, names):
                 name += "<u16>"
             elif name and "IjE" in line:
                 name += "<u32>"
+            elif name and "ILb" in line:  # K7/K8: <2D, nl>
+                d2, nl = line.split("ILb", 1)[1][:5:4]
+                name += f"<{'2D' if d2 == '1' else '3D'} nl={nl}>"
         elif name and ("stack frame" in line or "registers" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -1127,22 +1142,99 @@ def main():
                 time_ms(lambda: Hy.local_inverse(sk, rk, qf, nl), 2),
                 tensor_bytes(v, sk, rk), tensor_bytes(sk, rk, ok))
 
-    for shp in ((64, 256), (16, 16, 128), (64, 200), (24, 40, 56)):
+    # 2D groups of eight y-blocks (Y/8 = 9: a partial group), a ragged
+    # last tile of 8 z-blocks (Z/8 = 25, 17), and z walks split into
+    # segments ((8, 1024), (8, 8, 65536): one group, one column)
+    small0 = ((64, 256), (16, 16, 128), (64, 200), (24, 40, 56), (8, 1024),
+              (40, 16, 136), (8, 8, 65536), (72, 8192))
+    for shp in small0:
         vs = torch.from_numpy(gen.standard_normal(shp).astype(np.float32))
         for nl in (1, 2, 3):
             check_flag0(vs.to(dev), nl, 1e-3, timed=False)
-    phase("phase 3 small K7/K8 at (64,256), (16,16,128), (64,200), "
-          "(24,40,56), nl 1-3: equal to plain")
+    phase("phase 3 small K7/K8 at " + ", ".join(
+        "(" + ",".join(map(str, s)) + ")" for s in small0)
+        + ", nl 1-3: equal to plain")
+    # the kernels load and store 16-byte vectors: a view one element off is
+    # refused (not run, no fallback), and the API hands K7 an aligned copy
+    vs = torch.from_numpy(gen.standard_normal((64, 64, 128)).astype(
+        np.float32)).to(dev)
+    buf = torch.empty(vs.numel() + 4, device=dev)
+    off = buf[1:1 + vs.numel()].view(vs.shape)
+    off.copy_(vs)
+    sym_off = buf.view(torch.int32)[1:1 + vs.numel()].view(vs.shape)
+    for name, fn in (
+            ("K7", lambda: Hy.local_transform_fused(off, 1e3, 3)),
+            ("K8", lambda: Hy.local_inverse_fused(
+                sym_off, torch.zeros(Hy.remainder_shape(vs.shape, 3),
+                                     device=dev), 1e-3, 3))):
+        try:
+            fn()
+        except RuntimeError as e:
+            if "misaligned" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran on a misaligned view")
+    bcfg0 = M.Config()
+    bcfg0.lossless = M.lossless_type.BFX
+    blob0, st0 = M.compress(off, 1e-3, s=math.inf,
+                            mode=M.error_bound_type.ABS, config=bcfg0)
+    back0 = M.decompress(blob0, device=dev)[0]
+    if st0 != M.compress_status_type.Success or \
+            float((back0 - vs).abs().max()) > 1e-3:
+        raise AssertionError("Hybrid+BFX of a misaligned view failed")
+    phase("phase 3 K7/K8 alignment: views one element off raise "
+          "(misaligned address); compress of such a view (Hybrid+BFX) "
+          "holds its bound")
+    del buf, off, sym_off, back0
+    for line in ptxas_lines(kernels.BUILD_LOG, ("flag0_fwd_kernel",
+                                                "flag0_inv_kernel")):
+        phase("phase 3 K7/K8 ptxas " + line)
     t3 = check_flag0(v, 3, q, timed=True)
     report("hybrid_fwd", 0.0, t3[0], t3[1], t3[4],
            OPS_PER_ELEM["hybrid_fwd"] * v.numel())
     report("hybrid_inv", 0.0, t3[2], t3[3], t3[5],
            OPS_PER_ELEM["hybrid_inv"] * v.numel())
+    # num_local_refactoring_level is the caller's: at nl 1 a block holds 125
+    # corners, at nl 3 eight
+    for nl in (1, 2):
+        sk, rk = Hy.local_transform_fused(v, inv_q, nl)
+        check_flag0(v, nl, q, timed=False)
+        fwd = time_ms(lambda: Hy.local_transform_fused(v, inv_q, nl))
+        inv = time_ms(lambda: Hy.local_inverse_fused(sk, rk, HL._f32(q), nl))
+        phase(f"phase 3 K7/K8 at 512^3, nl={nl}: equal to plain; K7 "
+              f"{fwd:.4f} ms, K8 {inv:.4f} ms (bound "
+              f"{bound(tensor_bytes(v, sk, rk), 0)[0]:.4f})")
+    # yardsticks that move the same bytes (not the same function), and the
+    # copies around K7 on the Hybrid+BFX compress (highlevel's z-class
+    # grouping and the concatenation with the remainder's symbols)
+    sk, rk = Hy.local_transform_fused(v, inv_q, 3)
+    rsym = Hy.quantize(decompose(rk, rem_hier), inv_q)
+    cast_f = time_ms(lambda: v.to(torch.int32))
+    cast_i = time_ms(lambda: sk.to(torch.float32))
+    grp = Hy.zclass_group(sk)
+    t_grp = time_ms(lambda: Hy.zclass_group(sk))
+    t_cat = time_ms(lambda: torch.cat([grp.reshape(-1), rsym.reshape(-1)]))
+    b7, b8 = K7_K8_BEFORE
+    ms7, ms8 = rows["hybrid_fwd"]["ms"], rows["hybrid_inv"]["ms"]
+    phase(f"phase 3 K7/K8 at 512^3, nl=3: K7 {ms7:.4f} ms, K8 {ms8:.4f} ms "
+          f"(bound {rows['hybrid_fwd']['bound_ms']:.4f}); yardsticks: "
+          f"PyTorch's float32 -> int32 cast of the field {cast_f:.4f} ms, "
+          f"int32 -> float32 of the symbols {cast_i:.4f} ms; around K7 on "
+          f"the Hybrid+BFX compress: zclass_group {t_grp:.4f} ms, torch.cat "
+          f"{t_cat:.4f} ms; the shared-tile design {b7[0]}-{b7[1]} / "
+          f"{b8[0]}-{b8[1]} ms (PERF.md): {b7[0] / ms7:.4f}-"
+          f"{b7[1] / ms7:.4f}x / {b8[0] / ms8:.4f}-{b8[1] / ms8:.4f}x faster")
+    del sk, rk, rsym, grp
     x2 = torch.linspace(0.0, 1.0, 8192, device=dev)
     v2d = torch.sin(6 * np.pi * x2[:, None]) * torch.cos(5 * np.pi * x2[None])
     t2 = check_flag0(v2d, 3, q, timed=True)
     phase(f"phase 3 K7/K8 at 8192^2: equal to plain; K7 {t2[0]:.4f} ms "
-          f"(plain {t2[1]:.4f}), K8 {t2[2]:.4f} ms (plain {t2[3]:.4f})")
+          f"(plain {t2[1]:.4f}, bound "
+          f"{bound(t2[4], OPS_PER_ELEM['hybrid_fwd'] * v2d.numel())[0]:.4f}"
+          f"), K8 {t2[2]:.4f} ms (plain {t2[3]:.4f}, bound "
+          f"{bound(t2[5], OPS_PER_ELEM['hybrid_inv'] * v2d.numel())[0]:.4f}"
+          "); the shared-tile design {}-{} / {}-{} ms (PERF.md)".format(
+              *K7_K8_BEFORE_8192[0], *K7_K8_BEFORE_8192[1]))
     del v2d
     torch.cuda.empty_cache()
 
@@ -1257,7 +1349,27 @@ def main():
     phase(f"phase 3 K9 on the 384^3 field's finest level: "
           f"{v2d.numel()} elements, B=32, exp {int(exp9)}: planes and "
           f"err_max equal to plain, err_sq rel {rel9:.3e}")
-    del v384, lvl, v2d, k9_out
+    # K9's launches on one MDRefactor: every level the kernel takes, each
+    # timed with its own bound (the row above is the finest level's)
+    dec384 = decompose(v384, h384)
+    k9_levels = []
+    for lv_i in range(h384.l_target, -1, -1):
+        lv = BP.pad_stream(MC.interleave_level(dec384, h384, lv_i))
+        if not BP._use_kernel(lv.numel(), lv.dtype, 32):
+            continue
+        lv2 = lv.contiguous().reshape(32, -1)
+        e9 = BP._level_exp(lv2.abs().max().double())
+        b9 = bound(tensor_bytes(lv2, BP.encode_core(lv2, e9, 32)),
+                   lv2.numel() * (35 + 11 * 33))
+        k9_levels.append((lv_i, lv2.numel(),
+                          time_ms(lambda: BP.encode_core(lv2, e9, 32)), *b9))
+    phase(f"phase 3 K9 per MDRefactor at {N_MDR}^3: {len(k9_levels)} "
+          f"launches, {sum(r[2] for r in k9_levels):.4f} ms against a bound "
+          f"of {sum(r[3] for r in k9_levels):.4f} ms; per level (level, "
+          f"elements, ms, bound ms, by): " + "; ".join(
+              f"{r[0]}, {r[1]}, {r[2]:.4f}, {r[3]:.4f}, {r[4]}"
+              for r in k9_levels))
+    del v384, lvl, v2d, k9_out, dec384, lv, lv2
     torch.cuda.empty_cache()
 
     # -- 4. the main path ------------------------------------------------

@@ -1,9 +1,13 @@
 // The 8^3 local stencil of the hybrid front end on z lines held in
-// registers (K1/K4, hybrid_v2.cu; K10/K11, hybrid_v3.cu). One warp holds
-// one 8^3 block: lane 4*xi + j holds the two z lines (xi, y = 2j) ("a")
-// and (xi, y = 2j + 1) ("b"), eight values each. Every level-axis
-// interpolation pass of the plain version (ops/hybrid.py::_interp_pass)
-// becomes
+// registers (K1/K4, hybrid_v2.cu; K10/K11, hybrid_v3.cu; K7/K8,
+// hybrid.cu). One warp holds one 8^3 block: lane 4*xi + j holds the two z
+// lines (xi, y = 2j) ("a") and (xi, y = 2j + 1) ("b"), eight values each.
+// Without the x pass (XP = false: K7/K8 on a 2D field) the warp holds
+// eight 8x8 (y, z) blocks instead, lane 4*b + j the lines 2j and 2j + 1 of
+// block b: the rules read position 0 on the missing axis, which is coarse
+// at every level, and the y pass shuffles only within the lanes 4*b..4*b+3
+// of the lane's own block. Every level-axis interpolation pass of the plain
+// version (ops/hybrid.py::_interp_pass) becomes
 //   x: two shuffles per value, from lanes 4*lx + j and 4*rx + j;
 //   y: at most two shuffles, from the lanes holding the neighbour lines;
 //   z: register arithmetic along the line.
@@ -95,9 +99,9 @@ __device__ __forceinline__ void zpass(float (&w)[8]) {
   }
 }
 
-template <int LVL>
+template <int LVL, bool XP>
 __device__ __forceinline__ void interp_level(Lines& w, int xi, int j) {
-  xpass<LVL>(w, xi, j);
+  if (XP) xpass<LVL>(w, xi, j);
   ypass<LVL>(w, xi, j);
   zpass<LVL>(w.a);
   zpass<LVL>(w.b);
@@ -111,14 +115,16 @@ __device__ __forceinline__ bool coeff_at(bool in_xy, bool fine_xy, int z) {
 }
 
 // Level LVL of the local decompose: v -= interpolant at the coefficients.
-template <int LVL>
+// The rules read x position px: the lane's xi, or 0 without the x pass.
+template <int LVL, bool XP>
 __device__ __forceinline__ void decompose_level(Lines& v, int xi, int j) {
   Lines w = v;
-  interp_level<LVL>(w, xi, j);
-  const bool ia = in_chain(LVL, xi) && in_chain(LVL, 2 * j);
-  const bool ib = in_chain(LVL, xi) && in_chain(LVL, 2 * j + 1);
-  const bool fa = is_fine(LVL, xi) || is_fine(LVL, 2 * j);
-  const bool fb = is_fine(LVL, xi) || is_fine(LVL, 2 * j + 1);
+  interp_level<LVL, XP>(w, xi, j);
+  const int px = XP ? xi : 0;
+  const bool ia = in_chain(LVL, px) && in_chain(LVL, 2 * j);
+  const bool ib = in_chain(LVL, px) && in_chain(LVL, 2 * j + 1);
+  const bool fa = is_fine(LVL, px) || is_fine(LVL, 2 * j);
+  const bool fb = is_fine(LVL, px) || is_fine(LVL, 2 * j + 1);
 #pragma unroll
   for (int z = 0; z < 8; ++z) {
     if (coeff_at<LVL>(ia, fa, z)) v.a[z] = __fsub_rn(v.a[z], w.a[z]);
@@ -128,19 +134,20 @@ __device__ __forceinline__ void decompose_level(Lines& v, int xi, int j) {
 
 // Level LVL of the local recompose: the interpolant of the level's coarse
 // values (coefficients zeroed) is added back at the coefficients.
-template <int LVL>
+template <int LVL, bool XP>
 __device__ __forceinline__ void recompose_level(Lines& x, int xi, int j) {
-  const bool ia = in_chain(LVL, xi) && in_chain(LVL, 2 * j);
-  const bool ib = in_chain(LVL, xi) && in_chain(LVL, 2 * j + 1);
-  const bool fa = is_fine(LVL, xi) || is_fine(LVL, 2 * j);
-  const bool fb = is_fine(LVL, xi) || is_fine(LVL, 2 * j + 1);
+  const int px = XP ? xi : 0;
+  const bool ia = in_chain(LVL, px) && in_chain(LVL, 2 * j);
+  const bool ib = in_chain(LVL, px) && in_chain(LVL, 2 * j + 1);
+  const bool fa = is_fine(LVL, px) || is_fine(LVL, 2 * j);
+  const bool fb = is_fine(LVL, px) || is_fine(LVL, 2 * j + 1);
   Lines y;
 #pragma unroll
   for (int z = 0; z < 8; ++z) {
     y.a[z] = coeff_at<LVL>(ia, fa, z) ? 0.f : x.a[z];
     y.b[z] = coeff_at<LVL>(ib, fb, z) ? 0.f : x.b[z];
   }
-  interp_level<LVL>(y, xi, j);
+  interp_level<LVL, XP>(y, xi, j);
 #pragma unroll
   for (int z = 0; z < 8; ++z) {
     if (coeff_at<LVL>(ia, fa, z)) x.a[z] = __fadd_rn(x.a[z], y.a[z]);
@@ -150,18 +157,20 @@ __device__ __forceinline__ void recompose_level(Lines& x, int xi, int j) {
 
 // nl levels (1..3), finest first. Warp-uniform: every lane of the warp
 // takes part (the passes shuffle).
+template <bool XP = true>
 __device__ __forceinline__ void decompose_lines(Lines& v, int xi, int j,
                                                 int nl) {
-  decompose_level<0>(v, xi, j);
-  if (nl > 1) decompose_level<1>(v, xi, j);
-  if (nl > 2) decompose_level<2>(v, xi, j);
+  decompose_level<0, XP>(v, xi, j);
+  if (nl > 1) decompose_level<1, XP>(v, xi, j);
+  if (nl > 2) decompose_level<2, XP>(v, xi, j);
 }
 
+template <bool XP = true>
 __device__ __forceinline__ void recompose_lines(Lines& x, int xi, int j,
                                                 int nl) {
-  if (nl > 2) recompose_level<2>(x, xi, j);
-  if (nl > 1) recompose_level<1>(x, xi, j);
-  recompose_level<0>(x, xi, j);
+  if (nl > 2) recompose_level<2, XP>(x, xi, j);
+  if (nl > 1) recompose_level<1, XP>(x, xi, j);
+  recompose_level<0, XP>(x, xi, j);
 }
 
 // Loads and stores around the line walk. A thread block owns the 8x8 (x,
@@ -194,7 +203,20 @@ __device__ __forceinline__ void line_codes(const float (&l)[8], bool corner,
   }
 }
 
-// Inverse prologue of one line (K4, K11): its corner values from
+// Forward epilogue of one flag-0 line (K7): as line_codes, with the plain
+// symbols in natural order (a corner's symbol is 0).
+__device__ __forceinline__ void line_syms(const float (&l)[8], bool corner,
+                                          unsigned cmask, float inv_q,
+                                          float* rem_at, int (&s)[8]) {
+#pragma unroll
+  for (int z = 0; z < 8; ++z) {
+    const bool c = corner && ((cmask >> z) & 1u);
+    s[z] = c ? 0 : quantize_sym(l[z], inv_q);
+    if (c) rem_at[__popc(cmask & ((1u << z) - 1u))] = l[z];
+  }
+}
+
+// Inverse prologue of one line (K4, K11, K8): its corner values from
 // rem_at[0..k) (if `corner`), 0 elsewhere.
 __device__ __forceinline__ void line_corners(const float* rem_at, bool corner,
                                              unsigned cmask, float (&cr)[8]) {
@@ -205,7 +227,7 @@ __device__ __forceinline__ void line_corners(const float* rem_at, bool corner,
   }
 }
 
-// The inverse's output tile (K4, K11: NB z-blocks, warp w holding z-block
+// An output tile (K4, K11, K7, K8: NB z-blocks, warp w holding z-block
 // w) leaves through shared memory ob (64 lines of 2*NB float4s) so that a
 // warp stores whole rows of 8*NB floats: 16-byte chunk q of line L sits at
 // q ^ (L/2 mod 8), which spreads a warp's writes (lines 2*lane, chunks

@@ -1,9 +1,10 @@
 // The in-block 8-point chains of the hybrid front end, shared by K1/K4
 // (hybrid_v2.cu), K10/K11 (hybrid_v3.cu) and K7/K8 (hybrid.cu): per axis
 // 8 -> 5 -> 3 -> 2 over in-block positions {0..7} -> {0,2,4,6,7} -> {0,4,7}
-// -> {0,7}; and the quantizer and remainder index of the z-grouped front
-// ends (K1/K4, K10/K11). Every float operation is one rounded IEEE f32
-// operation in the order of the plain versions in ops/hybrid.py.
+// -> {0,7}; the quantizer (plain for K7, zigzagged for K1 and K10) and
+// the remainder index of the z-grouped front ends (K1/K4, K10/K11). Every
+// float operation is one rounded IEEE f32 operation in the order of the
+// plain versions in ops/hybrid.py.
 #pragma once
 
 namespace {
@@ -51,11 +52,16 @@ __device__ __forceinline__ int rem_col(int nl, int p) {
   return __popc(chain_mask(nl) & ((1u << p) - 1u));
 }
 
-// Round half away from zero of val*inv_q, then zigzag (u32 bit pattern).
-__device__ __forceinline__ unsigned quantize_zigzag(float val, float inv_q) {
+// Round half away from zero of val*inv_q (the flag-0 symbol, K7).
+__device__ __forceinline__ int quantize_sym(float val, float inv_q) {
   const float t = __fmul_rn(val, inv_q);
   const float h = t < 0.f ? __fsub_rn(t, 0.5f) : __fadd_rn(t, 0.5f);
-  const int sym = __float2int_rz(h);
+  return __float2int_rz(h);
+}
+
+// The symbol zigzagged (u32 bit pattern; K1, K10).
+__device__ __forceinline__ unsigned quantize_zigzag(float val, float inv_q) {
+  const int sym = quantize_sym(val, inv_q);
   return ((unsigned)sym << 1) ^ (unsigned)(sym >> 31);
 }
 

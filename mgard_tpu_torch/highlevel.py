@@ -300,10 +300,20 @@ def _edge_pad(v, padded):
     return v
 
 
+def _front_input(v, padded):
+    """The subdomain edge-padded to ``padded``, contiguous and 16-byte
+    aligned, as the front ends' kernels load it (16-byte vectors). Padding
+    and a slice along a minor axis make a new tensor; a slice along the
+    first axis of an unpadded field starts on whole planes of a multiple of
+    8 floats. Only a caller's own view at another offset is copied here."""
+    v = _edge_pad(v, padded).contiguous()
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _compress_core_hybrid_v2(v, q: float, padded, nl: int, rem_hier, C: int):
     """One-pass front end: (payload int16 [u16 grouped zigzag cf codes],
     cw (NC,) int32 [true chunk widths], rem_sym (n_rem,) int32)."""
-    v = _edge_pad(v, padded).contiguous()
+    v = _front_input(v, padded)
     inv_q = _inv_q(q)
     pay, cw, rem = Hy.local_transform_fused_v2(v, inv_q, nl, C)
     rem_dec = decompose(rem, rem_hier, orthogonal=False)
@@ -323,7 +333,7 @@ def _compress_core_hybrid_v3(v, q: float, padded, nl: int, rem_hier, K: int,
                              E: int):
     """Fused front end: (base, resid [static-cap layout], cw (NSB, 1024)
     int32 [tile-major widths], rem_sym (n_rem,) int32)."""
-    v = _edge_pad(v, padded).contiguous()
+    v = _front_input(v, padded)
     inv_q = _inv_q(q)
     base, resid, cw, rem = Hy.local_transform_pack_v3(v, inv_q, nl, K, E)
     rem_dec = decompose(rem, rem_hier, orthogonal=False)
@@ -345,7 +355,7 @@ def _compress_core_hybrid(v, q: float, padded, nl: int, rem_hier,
     by the quantized remainder transform. A 2D or 3D float32 field takes K7
     (a CUDA tensor launches it); other ranks, and float64, run the plain
     version on every device, as the JAX package runs XLA for them."""
-    v = _edge_pad(v, padded).contiguous()
+    v = _front_input(v, padded)
     inv_q = _inv_q(q, rem_hier.dtype)
     front = (Hy.local_transform_fused
              if v.ndim in (2, 3) and v.dtype == torch.float32

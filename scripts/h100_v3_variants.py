@@ -59,14 +59,17 @@ VARIANTS = {
 }
 
 
-def build_variant(kernels, name, patches):
-    """Build the variant's library and return (the loaded library, its
-    ptxas lines for K10/K11)."""
-    out = ROOT / "build" / "v3_variants" / name
+def build_variant(kernels, name, patches, source="hybrid_v3.cu",
+                  entries=("v3_pack_kernel", "v3_unpack_kernel"),
+                  folder="v3_variants"):
+    """Build the variant's library (csrc with `source` patched) under
+    build/<folder>/<name>/ and return (the loaded library, the ptxas lines
+    of the kernels named in `entries`)."""
+    out = ROOT / "build" / folder / name
     shutil.rmtree(out, ignore_errors=True)
     src = out / "csrc"
     shutil.copytree(ROOT / "mgard_tpu_torch" / "csrc", src)
-    cu = src / "hybrid_v3.cu"
+    cu = src / source
     text = cu.read_text()
     for old, new in patches:
         if text.count(old) != 1:
@@ -76,8 +79,7 @@ def build_variant(kernels, name, patches):
     cu.write_text(text)
     kernels._CSRC, kernels.BUILD_DIR, kernels._lib = src, out / "lib", None
     lib = kernels.lib()
-    return lib, CS.ptxas_lines(kernels.BUILD_LOG,
-                               ("v3_pack_kernel", "v3_unpack_kernel"))
+    return lib, CS.ptxas_lines(kernels.BUILD_LOG, entries)
 
 
 def main():
