@@ -29,6 +29,13 @@ Phases (each prints a line; any failure exits nonzero before the result):
      stream beside a copy of the rows that moves the same bytes, with
      their ptxas lines), on the edge cases of bfp.BAND_CASES, and on wide
      rows at sb=256; rows one element off 16-byte alignment are refused;
+     K5/K6 (the BFX codec) on the 512^3 Hybrid+BFX stream, on 8192
+     symbols at sb=256/align=1 (a small remainder), on an MDR plane of the
+     384^3 finest level and on a stream of 32-bit blocks at sb=4096 (each
+     timed, beside PyTorch's int32 <-> uint8 casts of the 512^3 stream as
+     yardsticks, with their ptxas lines), on three small streams, and
+     refusing views one element off 16-byte alignment; K5 also timed over
+     the 99 bfx planes of one 384^3 MDRefactor;
   4. the main path: compress + decompress a 512^3 float32 field at
      tol=1e-3 (s=inf, ABS, default Config) through the public API, with the
      launch counters reset just before and read just after (K1-K4);
@@ -149,6 +156,14 @@ K10_K11_BEFORE = ((3.2204, 3.2288), (3.5800, 3.6050))
 # H100 80GB HBM3 at 700 W
 K7_K8_BEFORE = ((2.2413, 2.2438), (2.8794, 2.8891))
 K7_K8_BEFORE_8192 = ((1.0034, 1.0112), (1.3290, 1.3391))
+# K5/K6 ms on the 512^3 Hybrid+BFX stream in their first design (four and
+# three launches: widths, a scan per superblock, a scan of the offsets, a
+# warp per block packing by ballots), measured just before the cluster
+# design replaced it (PERF.md), one H100 80GB HBM3 at 700 W
+K5_K6_BEFORE = ((1.4121, 1.4160), (1.0677, 1.0716))
+# the MDR plane of phase 3's K5/K6 check: a row of the 384^3 finest level's
+# K9 planes (1,546,240 words, twelve superblocks of 4096 blocks)
+MDR_PLANE = 24
 # K2/K3 ms at 512^3, cf and remainder stream together, on the same card
 # in their warp-ballot design (PERF.md's kernel table)
 K2_K3_BEFORE = (1.3725, 1.3140)
@@ -1240,7 +1255,7 @@ def main():
 
     # K5/K6, the BFX codec: words, widths and total equal to the plain merge
     # tree's; symbols back equal to the split tree's and to the input
-    def check_bfx(sym, sb, align, timed):
+    def check_bfx(sym, sb, align, timed, reps=5):
         ko = X.encode_core(sym, sb, align)
         po = X.encode_core_plain(sym, sb, align)
         T = int(ko[2])
@@ -1257,9 +1272,10 @@ def main():
         del dp
         if not timed:
             return T, None
-        return T, (time_ms(lambda: X.encode_core(sym, sb, align)),
+        return T, (time_ms(lambda: X.encode_core(sym, sb, align), reps),
                    time_ms(lambda: X.encode_core_plain(sym, sb, align), 1),
-                   time_ms(lambda: X.decode_core(words, widths, sb, align)),
+                   time_ms(lambda: X.decode_core(words, widths, sb, align),
+                           reps),
                    time_ms(lambda: X.decode_core_plain(words, widths, sb,
                                                         align), 1))
 
@@ -1274,8 +1290,16 @@ def main():
                     not torch.equal(X.decode(blob_d, 0, dev)[0], sm):
                 raise AssertionError("BFX blob written on the card differs "
                                      "from the CPU's")
+    # 32-bit superblocks after one of a single word (align=1): each slot of
+    # a round stages 32 words at quad phase 1
+    odd = mixed_symbols(4096 * 32 * 3, gen, wide=True)
+    odd[::32] = -2**31
+    odd[:4096 * 32] = 0
+    odd[0] = -1
+    check_bfx(torch.from_numpy(odd).to(dev), 4096, 1, timed=False)
     phase("phase 3 small K5/K6: mixed widths at sb=256/align=1, 32-bit-wide "
-          "blocks at sb=256/align=1 and sb=4096/align=1024: words and "
+          "blocks at sb=256/align=1 and sb=4096/align=1024, 32-bit "
+          "superblocks at odd offsets (sb=4096/align=1): words and "
           "symbols equal to plain; card and CPU blobs equal at sb=256")
     sym = HL._compress_core_hybrid(v, q, padded, 3, rem_hier, True)
     sb = X._choose_sb(sym.numel(), dev)
@@ -1290,8 +1314,65 @@ def main():
     report("bfx_decode", 0.0, t5[2], t5[3], bfx_moved, bfx_ops)
     phase(f"phase 3 K5/K6 on the 512^3 Hybrid+BFX stream: "
           f"{sym.numel()} symbols, sb={sb}, align={X.ALIGN}, {T} words")
+    # yardsticks that move about the same bytes (not the same function):
+    # 4 bytes read and 1 written a symbol, and back
+    cast_5 = time_ms(lambda: sym.to(torch.uint8))
+    u8 = sym.to(torch.uint8)
+    cast_6 = time_ms(lambda: u8.to(torch.int32))
+    del u8
+    for line in ptxas_lines(kernels.BUILD_LOG, ("bfx_encode_kernel",
+                                                "bfx_decode_kernel")):
+        phase("phase 3 K5/K6 ptxas " + line)
+    ms5, ms6 = rows["bfx_encode"]["ms"], rows["bfx_decode"]["ms"]
+    b5, b6 = K5_K6_BEFORE
+    phase(f"phase 3 K5/K6 at 512^3: K5 {ms5:.4f} ms, K6 {ms6:.4f} ms (bound "
+          f"{rows['bfx_encode']['bound_ms']:.4f}); yardsticks: PyTorch's "
+          f"int32 -> uint8 cast of the symbols {cast_5:.4f} ms, uint8 -> "
+          f"int32 {cast_6:.4f} ms; the first design {b5[0]}-{b5[1]} / "
+          f"{b6[0]}-{b6[1]} ms (PERF.md): {b5[0] / ms5:.4f}-"
+          f"{b5[1] / ms5:.4f}x / {b6[0] / ms6:.4f}-{b6[1] / ms6:.4f}x faster")
     del sym
     torch.cuda.empty_cache()
+
+    # small streams, ruled by launches: a remainder of 8192 symbols at
+    # sb=256/align=1; and a stream of 32-bit blocks at sb=4096 (every block
+    # stages as many words as it read)
+    s256 = torch.from_numpy(mixed_symbols(8192, gen)).to(dev)
+    T256, t256 = check_bfx(s256, 256, 1, timed=True, reps=50)
+    wide = mixed_symbols(4096 * 32 * 12, gen, wide=True)
+    wide[::32] = -2**31
+    wide = torch.from_numpy(wide).to(dev)
+    Tw, tw = check_bfx(wide, 4096, X.ALIGN, timed=True, reps=50)
+    if Tw != wide.numel():
+        raise AssertionError(f"32-bit blocks: {Tw} words, not {wide.numel()}")
+    bw = bound(tensor_bytes(wide) * 2 + wide.numel() // 32, 0)[0]
+    phase(f"phase 3 K5/K6 small: 8192 symbols at sb=256/align=1 ({T256} "
+          f"words): K5 {t256[0]:.4f} ms, K6 {t256[2]:.4f} ms (CUDA-event "
+          f"means of 50 wrapper calls); 32-bit blocks, "
+          f"{wide.numel()} symbols at sb=4096/align={X.ALIGN}: K5 "
+          f"{tw[0]:.4f} ms, K6 {tw[2]:.4f} ms (bound {bw:.4f})")
+    # the kernels load and store 16-byte vectors: a view one element off is
+    # refused (not run, no fallback); the bytes API copies such a view
+    bufx = torch.zeros(8192 + 4, dtype=torch.int32, device=dev)
+    offx = bufx[1:1 + 8192]
+    offx.copy_(s256)
+    w256 = X.encode_core(s256, 256, 1)[1]
+    for name, fn in (("K5", lambda: X.encode_core(offx, 256, 1)),
+                     ("K6", lambda: X.decode_core(bufx[1:1 + T256], w256,
+                                                  256, 1))):
+        try:
+            fn()
+        except RuntimeError as e:
+            if "misaligned" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran on a misaligned view")
+    if X.encode(offx) != X.encode(s256):
+        raise AssertionError("BFX blob of a misaligned view differs")
+    phase("phase 3 K5/K6 alignment: views one element off raise "
+          "(misaligned address); the bytes API encodes such a view as the "
+          "aligned one")
+    del s256, wide, bufx, offx
 
     # K9, the MDR bitplane encoder: planes, the level exponent and the max
     # partials equal to the plain version's; the finished err_sq table
@@ -1349,27 +1430,59 @@ def main():
     phase(f"phase 3 K9 on the 384^3 field's finest level: "
           f"{v2d.numel()} elements, B=32, exp {int(exp9)}: planes and "
           f"err_max equal to plain, err_sq rel {rel9:.3e}")
+    # K5/K6 on one of its planes as MDR's bfx level compressor packs it
+    # (encode_device's padding to whole superblocks of 4096 blocks)
+    plane = k9_out[0][MDR_PLANE]
+    psb = X._choose_sb(plane.numel(), dev)
+    psym = torch.cat([plane, plane.new_zeros(X._pad_to(plane.numel(), psb)
+                                             - plane.numel())])
+    Tp, tp = check_bfx(psym, psb, X.ALIGN, timed=True, reps=50)
+    bp = bound(tensor_bytes(psym) + 4 * Tp + psym.numel() // 32, 0)[0]
+    phase(f"phase 3 K5/K6 on MDR plane {MDR_PLANE} of the 384^3 finest "
+          f"level: {plane.numel()} words padded to {psym.numel()} symbols, "
+          f"sb={psb} ({psym.numel() // (psb * 32)} superblocks), "
+          f"align={X.ALIGN}, {Tp} stream words: equal to plain; K5 "
+          f"{tp[0]:.4f} ms, K6 {tp[2]:.4f} ms (bound {bp:.4f})")
+    del plane, psym
     # K9's launches on one MDRefactor: every level the kernel takes, each
     # timed with its own bound (the row above is the finest level's)
     dec384 = decompose(v384, h384)
-    k9_levels = []
+    k9_levels, k9_planes = [], []
     for lv_i in range(h384.l_target, -1, -1):
         lv = BP.pad_stream(MC.interleave_level(dec384, h384, lv_i))
         if not BP._use_kernel(lv.numel(), lv.dtype, 32):
             continue
         lv2 = lv.contiguous().reshape(32, -1)
         e9 = BP._level_exp(lv2.abs().max().double())
-        b9 = bound(tensor_bytes(lv2, BP.encode_core(lv2, e9, 32)),
+        k9_planes.append(BP.encode_core(lv2, e9, 32)[0])
+        b9 = bound(tensor_bytes(lv2, k9_planes[-1]),
                    lv2.numel() * (35 + 11 * 33))
         k9_levels.append((lv_i, lv2.numel(),
                           time_ms(lambda: BP.encode_core(lv2, e9, 32)), *b9))
+    # K5 on every plane that MDR's bfx level compressor packs on the card
+    # (planes of at least PLANE_BFX_MIN_WORDS words), dispatched back to
+    # back as MDRefactor dispatches them
+    bfx_rows = [pl[p] for pl in k9_planes for p in range(pl.shape[0])
+                if pl.shape[1] >= MA.PLANE_BFX_MIN_WORDS]
+    n5 = kernels.LAUNCHES["bfx_encode"]
+    t5_mdr = time_ms(lambda: [X.encode_device(r) for r in bfx_rows], 3)
+    n5 = (kernels.LAUNCHES["bfx_encode"] - n5) // 4
     phase(f"phase 3 K9 per MDRefactor at {N_MDR}^3: {len(k9_levels)} "
           f"launches, {sum(r[2] for r in k9_levels):.4f} ms against a bound "
           f"of {sum(r[3] for r in k9_levels):.4f} ms; per level (level, "
           f"elements, ms, bound ms, by): " + "; ".join(
               f"{r[0]}, {r[1]}, {r[2]:.4f}, {r[3]:.4f}, {r[4]}"
               for r in k9_levels))
-    del v384, lvl, v2d, k9_out, dec384, lv, lv2
+    b5_mdr = bound(sum(tensor_bytes(r) * 2 + r.numel() // 32
+                       for r in bfx_rows), 0)[0]
+    phase(f"phase 3 K5 per MDRefactor at {N_MDR}^3 with bfx planes: {n5} "
+          f"launches on {len(bfx_rows)} planes, {t5_mdr:.4f} ms (CUDA events "
+          f"around the dispatch of every plane, as encode_device runs it; "
+          f"mean of 3), against a bound of at most {b5_mdr:.4f} ms")
+    if n5 != len(bfx_rows):
+        raise AssertionError(f"K5 launched {n5} times on {len(bfx_rows)} "
+                             f"planes")
+    del v384, lvl, v2d, k9_out, dec384, lv, lv2, k9_planes, bfx_rows
     torch.cuda.empty_cache()
 
     # -- 4. the main path ------------------------------------------------

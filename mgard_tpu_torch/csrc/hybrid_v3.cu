@@ -69,8 +69,6 @@
 // thread undoes the word order inside a quad (XOR by swz & 3) in registers.
 #include <cooperative_groups.h>
 
-#include <atomic>
-
 #include "bits.cuh"
 #include "common.cuh"
 #include "line8.cuh"
@@ -510,26 +508,11 @@ inline int row_bytes(int Z) { return ROWS * Z * (int)sizeof(uint16_t); }
 
 // K10's and K11's function attributes, set once per device: the row buffer
 // at the largest Z, and clusters of 16 (a size above the portable 8).
+struct V3Attributes;
 cudaError_t set_attributes() {
-  constexpr int MAX_DEVICES = 64;
-  static std::atomic<bool> done[MAX_DEVICES];
-  int d = 0;
-  cudaError_t e = cudaGetDevice(&d);
-  if (e != cudaSuccess) return e;
-  if (d >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (done[d].load(std::memory_order_acquire)) return cudaSuccess;
-  for (const void* kernel : {(const void*)v3_pack_kernel,
-                             (const void*)v3_unpack_kernel}) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             row_bytes(1024));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-  }
-  done[d].store(true, std::memory_order_release);
-  return cudaSuccess;
+  return mgard_set_attributes<V3Attributes>(
+      {(const void*)v3_pack_kernel, (const void*)v3_unpack_kernel},
+      row_bytes(1024), true);
 }
 
 // The launch of K10 or K11 at depth Z on grid: clusters of 16 along x and
@@ -548,16 +531,6 @@ cudaLaunchConfig_t cluster_config(int Z, dim3 grid, cudaStream_t st,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cfg;
-}
-
-// A refused launch returns its error and leaves none pending for the next
-// entry point's cudaGetLastError.
-inline int launch_status(cudaError_t e) {
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  return mgard_launch_status();
 }
 
 inline bool bad_shape(int X, int Y, int Z, int nl) {
@@ -587,7 +560,7 @@ MGARD_EXPORT int hybrid_pack_v3(const void* v, float inv_q, void* base,
     e = cudaLaunchKernelEx(&cfg, v3_pack_kernel, (const float*)v, inv_q,
                            (unsigned*)base, (unsigned*)resid, (int*)cw,
                            (float*)rem, Y, Z, nl, K, E);
-  return launch_status(e);
+  return mgard_launch_status(e);
 }
 
 // The mirror: base (NSB, max(K,1), C, 1024), crl (NSB, 1024), resid (NSB, E,
@@ -608,7 +581,7 @@ MGARD_EXPORT int hybrid_unpack_v3(const void* base, const void* crl,
     e = cudaLaunchKernelEx(&cfg, v3_unpack_kernel, (const unsigned*)base,
                            (const int*)crl, (const unsigned*)resid,
                            (const float*)rem, q, (float*)out, Y, Z, nl, K, E);
-  return launch_status(e);
+  return mgard_launch_status(e);
 }
 
 // How many clusters of K10 (out[0]) and K11 (out[1]) the card holds at once
@@ -622,5 +595,5 @@ MGARD_EXPORT int hybrid_v3_max_clusters(int Z, int* out) {
     e = cudaOccupancyMaxActiveClusters(&out[0], v3_pack_kernel, &cfg);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveClusters(&out[1], v3_unpack_kernel, &cfg);
-  return launch_status(e);
+  return mgard_launch_status(e);
 }

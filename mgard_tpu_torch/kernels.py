@@ -7,8 +7,8 @@ headers, so a build takes seconds). The library goes to ``build/kernels/``
 at the root of the checkout, named by a hash of the sources and flags, so a
 changed source builds anew and an unchanged one is reused.
 
-Each C entry point launches its kernel (for K2/K3 and K5/K6 a short
-chain of kernels; for a probe the variant it is asked for) on the stream
+Each C entry point launches its kernel (for K2/K3 a short chain of
+kernels; for a probe the variant it is asked for) on the stream
 it is given and returns ``cudaGetLastError()``; ``launch`` raises on a
 nonzero code and only then counts the launch in ``LAUNCHES``.
 Nothing here runs on import, and nothing falls back: a CUDA tensor either
@@ -47,10 +47,10 @@ _SIGNATURES = {
     # NB, C, sbc, K, E, stream
     "bfp_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                    _I, _P],
-    # sym, widths, boff, slen, offs, out, NB, sb, align, stream
-    "bfx_encode": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
-    # words, widths, boff, slen, offs, sym, NB, sb, align, stream
-    "bfx_decode": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # sym, widths, scratch, offs, out, NB, sb, align, stream
+    "bfx_encode": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # words, widths, scratch, sym, NB, sb, align, stream
+    "bfx_decode": [_P, _P, _P, _P, _L, _I, _I, _P],
     # v, inv_q, sym, rem, X, Y, Z, nl, stream
     "hybrid_fwd": [_P, _F, _P, _P, _I, _I, _I, _I, _P],
     # sym, rem, q, out, X, Y, Z, nl, stream

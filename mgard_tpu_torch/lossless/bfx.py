@@ -145,13 +145,18 @@ def _pack_superblock(zt, w):
 
 
 def _unpack_superblock(streams, w):
-    """Inverse of _pack_superblock: streams (B, S*32) -> zt (32, B, S)."""
+    """Inverse of _pack_superblock: streams (B, S*32) -> zt (32, B, S).
+    The words above each block's width read as zero: the split levels mask
+    them, and at S = 1 (no split level) the last mask does. (The JAX
+    package's split tree lacks that mask, so at sb=1 it decodes a narrow
+    block with the next superblock's words as its high planes.)"""
     chain = _lens_chain(w.unsqueeze(2))
     x = streams.unsqueeze(1)
     for level in range(len(chain) - 2, -1, -1):
         lens = chain[level]
         S = x.shape[1]
         x = _split_level(x, lens[:, :S], lens[:, S:])
+    x = torch.where(torch.arange(BS, device=x.device) < w.unsqueeze(2), x, 0)
     return _bit_transpose32(x.permute(2, 0, 1).contiguous())
 
 
@@ -217,11 +222,18 @@ def _check_geometry(N: int, sb: int, align: int) -> None:
         raise ValueError(f"BFX stream of {N} symbols exceeds int32 offsets")
 
 
+def _scratch(NSB: int, dev):
+    """K5's and K6's scratch (the entry point zeroes it): the ticket
+    counter, then one look-back status word a superblock."""
+    return torch.empty(NSB + 1, dtype=torch.int64, device=dev)
+
+
 def encode_core(sym, sb: int, align: int):
     """K5 wrapper (replaces mgard_tpu/lossless/bfx.py _encode_pallas and
     the widths/offsets glue of its encode_core): same outputs as
     encode_core_plain, except that on CUDA the words past ``total`` are
-    left unwritten."""
+    left unwritten. On CUDA ``sym`` must be 16-byte aligned (a misaligned
+    view raises)."""
     dev = sym.device
     N = sym.shape[0]
     _check_geometry(N, sb, align)
@@ -233,12 +245,10 @@ def encode_core(sym, sb: int, align: int):
     NB = N // BS
     NSB = NB // sb
     widths = torch.empty(NB, dtype=torch.uint8, device=dev)
-    boff = torch.empty(NB, dtype=_I32, device=dev)
-    slen = torch.empty(NSB, dtype=_I32, device=dev)
     offs = torch.empty(NSB + 1, dtype=_I32, device=dev)
     out = torch.empty(_out_words(NSB, sb, align), dtype=_I32, device=dev)
     kernels.launch("bfx_encode", sym.data_ptr(), widths.data_ptr(),
-                   boff.data_ptr(), slen.data_ptr(), offs.data_ptr(),
+                   _scratch(NSB, dev).data_ptr(), offs.data_ptr(),
                    out.data_ptr(), NB, sb, align, kernels.stream(dev))
     return out, widths, offs[-1]
 
@@ -248,7 +258,8 @@ def decode_core(words, widths, sb: int, align: int):
     stream's words + widths (NB,) uint8 -> (NB*32,) int32 symbols. Same
     output as decode_core_plain. The caller guarantees what ``decode``
     checks: every width is at most 32 and ``words`` holds the total the
-    widths imply (the kernel reads nothing past it)."""
+    widths imply (the kernel reads nothing past it). On CUDA ``words``
+    must be 16-byte aligned (a misaligned view raises)."""
     dev = widths.device
     NB = widths.shape[0]
     _check_geometry(NB * BS, sb, align)
@@ -258,14 +269,10 @@ def decode_core(words, widths, sb: int, align: int):
         return decode_core_plain(words, widths, sb, align)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    NSB = NB // sb
-    boff = torch.empty(NB, dtype=_I32, device=dev)
-    slen = torch.empty(NSB, dtype=_I32, device=dev)
-    offs = torch.empty(NSB + 1, dtype=_I32, device=dev)
     sym = torch.empty(NB * BS, dtype=_I32, device=dev)
     kernels.launch("bfx_decode", words.data_ptr(), widths.data_ptr(),
-                   boff.data_ptr(), slen.data_ptr(), offs.data_ptr(),
-                   sym.data_ptr(), NB, sb, align, kernels.stream(dev))
+                   _scratch(NB // sb, dev).data_ptr(), sym.data_ptr(), NB,
+                   sb, align, kernels.stream(dev))
     return sym
 
 
@@ -296,6 +303,8 @@ def encode_device(symbols, sb_blocks=None):
     sym = symbols.to(_I32).reshape(-1)
     if npad != n:
         sym = torch.cat([sym, torch.zeros(npad - n, dtype=_I32, device=dev)])
+    elif dev.type == "cuda" and sym.data_ptr() % 16:  # K5: 16-byte aligned
+        sym = sym.clone()
     # small streams keep tight (unaligned) superblock offsets: the 1024-word
     # alignment would dominate their size
     align = ALIGN if dev.type == "cuda" and sb >= SB_BLOCKS else 1

@@ -140,6 +140,23 @@ def test_sb_override_matches_jax():
     np.testing.assert_array_equal(T.decode(blob)[0].numpy(), s)
 
 
+def test_sb1_decode_masks_above_width():
+    """DIVERGENCE from mgard_tpu on purpose (a defect recorded against the
+    reference): at Config.bfx_sb_blocks = 1 both packages write the same
+    blob, but the JAX package's split tree has no level that masks the
+    words above a block's width, so it decodes a narrow block with the
+    next superblock's words as its high planes. The port's plain K6 (and
+    K6 on the card) decode the input."""
+    s = _rand_syms(40 * 32, 30, 6)
+    jc, tc = mgard_tpu.Config(), mgard_tpu_torch.Config()
+    jc.bfx_sb_blocks = tc.bfx_sb_blocks = 1
+    blob = T.encode(torch.from_numpy(s), tc)
+    assert struct.unpack_from(T._HDR, blob, 0)[3:] == (1, 1)
+    assert blob == J.encode(s, jc)
+    np.testing.assert_array_equal(T.decode(blob)[0].numpy(), s)
+    assert not np.array_equal(_jax_decode(blob)[0], s)
+
+
 def test_geometry_choice_follows_the_jax_rule():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     big = T.SB_BLOCKS * 32
