@@ -10,9 +10,10 @@ Phases (each prints a line; any failure exits nonzero before the result):
      512^3 geometries of the main path and of Hybrid+BFX (K7/K8 also at
      8192^2, and all at a few small geometries) and, for K9, at the 384^3
      MDR field's finest-level stream, with times from CUDA events (K9 also
-     per level of one MDRefactor); K7/K8 at 512^3 timed at nl 1, 2 and 3
-     (with their ptxas lines, PyTorch's casts of the same bytes and the
-     copies around K7 on the Hybrid+BFX compress), at 8192^2 with its
+     per level of one MDRefactor, replayed from a CUDA graph); K7/K8 at
+     512^3 timed at nl 1, 2 and 3 (with their ptxas lines, PyTorch's
+     casts of the same bytes and the copies around K7 on the Hybrid+BFX
+     compress), at 8192^2 with its
      bound, at eight small shapes (a partial 2D group, a ragged last tile,
      z walks split into segments), refusing views one element off 16-byte
      alignment while compress of such a view holds its bound; K1/K4
@@ -66,10 +67,12 @@ Phases (each prints a line; any failure exits nonzero before the result):
      primed shape takes the stale-K fallback (flag 1, K refreshed) and the
      stream after it fuses again;
  13. the layout probes P1-P3 (mgard_tpu_torch/probes.py): every variant at
-     the probe's own shape and at one production shape, called, compared
-     (max_abs_err 0) and timed here against its plain version and, where
-     there is one, the PyTorch call that computes the same; then one
-     counted run of the probes' own entry point (probes.run_all);
+     the probe's own shape and at one production shape (P2 also at a
+     ragged tail shape), called, compared (max_abs_err 0) and timed here
+     against its plain version and, where there is one, the PyTorch call
+     that computes the same (P2's direct variant against it in alternating
+     rounds, medians of single launches); then one counted run of the
+     probes' own entry point (probes.run_all);
  14. the generic compress surface at full size, each run checking its bound
      on the card and, for every call, the exact K2/K3 counts (one
      pre-sorted bfp.encode_core section each way, at most one
@@ -91,7 +94,8 @@ Phases (each prints a line; any failure exits nonzero before the result):
 The second-to-last line is a JSON summary of the kernels: launches from the
 path each kernel belongs to (K1-K4 phase 4, K5-K8 phase 5, K9 phase 8,
 K10/K11 phase 12, the probe variants phase 13's counted run),
-times from phase 3 (probes: phase 13), and each kernel's bound: the larger of the bytes it
+times from phase 3 (probes: phase 13; K9 also per level of one
+MDRefactor), and each kernel's bound: the larger of the bytes it
 must move over the card's 3.35 TB/s and its operations over 67 TOP/s (the
 H100 SXM data sheet's float32 rate; integer lane operations counted at the
 same rate). The last line is {"ok": true, "device": {...}}.
@@ -100,6 +104,7 @@ same rate). The last line is {"ok": true, "device": {...}}.
 import json
 import math
 import os
+import statistics
 import struct
 import subprocess
 import sys
@@ -183,6 +188,9 @@ PROBE_REPLACES = {"dynwin": "scripts/probe_dynwin.py:61",
 # (P3), read off the kernels: an estimate, every variant is bound by bytes.
 PROBE_OPS = {"or": 6, "owner": 2, "direct": 2, "cpasync": 3, "row32": 5,
              "row33": 5, "ballot": 32 * 58, "butterfly": 300}
+# rounds of 20 launches each in which P2's direct variant and its PyTorch
+# call alternate (phase 13)
+DIRECT_ROUNDS = 5
 
 
 def phase(msg):
@@ -235,6 +243,46 @@ def time_ms(fn, reps=5):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Device ms per call of fn: reps calls captured in one CUDA graph and
+    replayed between CUDA events, so that no host time (a wrapper's checks
+    and allocations) falls between the launches of a small kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del g
+    return a.elapsed_time(b) / reps
+
+
+def launch_ms(fn, reps=20):
+    """Device time of each of reps launches of fn (CUDA events around each,
+    one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in ev]
 
 
 def host_profile(fn, top=5):
@@ -386,12 +434,26 @@ def probe_phase(dev, kernels, rows, path_launches):
                                      f"differs from the plain version by "
                                      f"{err}")
             del got
-            ms = time_ms(lambda: kern(v))
+            ms, v_lib_ms, v_lib = time_ms(lambda: kern(v)), lib_ms, lib
+            if v == "direct" and library is not None:
+                # the kernel against the PyTorch call, alternating, each
+                # launch timed: medians over DIRECT_ROUNDS x 20 launches
+                kd, ld = [], []
+                for _ in range(DIRECT_ROUNDS):
+                    kd += launch_ms(lambda: kern(v), 20)
+                    ld += launch_ms(library, 20)
+                ms, v_lib_ms = statistics.median(kd), statistics.median(ld)
+                v_lib = f", {PR.LIBRARY_CALL[probe]} {v_lib_ms:.4f} ms"
+                phase(f"phase 13 {probe} {shape} direct against "
+                      f"{PR.LIBRARY_CALL[probe]}, medians of {len(kd)} "
+                      f"launches each, alternating: {ms:.4f} / "
+                      f"{v_lib_ms:.4f} ms ({ms / v_lib_ms:.3f}x)")
             units = moved // 8  # words moved: half read, half written
             ops = PROBE_OPS[v] * (moved // 128 if probe == "u16" else units)
             bms, by = bound(moved, ops)
             phase(f"phase 13 {probe} {shape} {v}: max_abs_err={err} against "
-                  f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+                  f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  f"{v_lib}, "
                   f"bound {bms:.4f} ms ({by}: {moved} bytes, {ops} "
                   f"operations) = {ms / bms:.2f}x")
             if shape == PR.SHAPES[name][1]:
@@ -399,7 +461,7 @@ def probe_phase(dev, kernels, rows, path_launches):
                 rows[f"probe_{probe}_{v}"] = dict(
                     replaces=PROBE_REPLACES[probe], max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=lib_ms, counter=PR.counter(name, v))
+                    library_ms=v_lib_ms, counter=PR.counter(name, v))
         del want
     kernels.reset_launches()
     PR.run_all(dev, timed=False)
@@ -1425,7 +1487,10 @@ def main():
            tensor_bytes(v2d, k9_out),
            # per element: ~35 lane operations to quantize and transpose,
            # then 11 per table entry (mask, subtract, compare, select,
-           # subtract, convert, add, abs, max, multiply, add)
+           # subtract, convert, add, abs, max, multiply, add): the count of
+           # K9's first design, kept as the yardstick so that every design
+           # is held to one bound (the present kernel issues fewer:
+           # scripts/h100_bitplane_variants.py counts them)
            v2d.numel() * (35 + 11 * 33))
     phase(f"phase 3 K9 on the 384^3 field's finest level: "
           f"{v2d.numel()} elements, B=32, exp {int(exp9)}: planes and "
@@ -1458,7 +1523,7 @@ def main():
         b9 = bound(tensor_bytes(lv2, k9_planes[-1]),
                    lv2.numel() * (35 + 11 * 33))
         k9_levels.append((lv_i, lv2.numel(),
-                          time_ms(lambda: BP.encode_core(lv2, e9, 32)), *b9))
+                          graph_ms(lambda: BP.encode_core(lv2, e9, 32)), *b9))
     # K5 on every plane that MDR's bfx level compressor packs on the card
     # (planes of at least PLANE_BFX_MIN_WORDS words), dispatched back to
     # back as MDRefactor dispatches them
@@ -1468,11 +1533,15 @@ def main():
     t5_mdr = time_ms(lambda: [X.encode_device(r) for r in bfx_rows], 3)
     n5 = (kernels.LAUNCHES["bfx_encode"] - n5) // 4
     phase(f"phase 3 K9 per MDRefactor at {N_MDR}^3: {len(k9_levels)} "
-          f"launches, {sum(r[2] for r in k9_levels):.4f} ms against a bound "
+          f"launches, {sum(r[2] for r in k9_levels):.4f} ms (device time, "
+          f"20 calls a level in a CUDA graph) against a bound "
           f"of {sum(r[3] for r in k9_levels):.4f} ms; per level (level, "
           f"elements, ms, bound ms, by): " + "; ".join(
               f"{r[0]}, {r[1]}, {r[2]:.4f}, {r[3]:.4f}, {r[4]}"
               for r in k9_levels))
+    rows["bitplane_encode"]["levels"] = [
+        dict(level=r[0], elements=r[1], ms=r[2], bound_ms=r[3])
+        for r in k9_levels]
     b5_mdr = bound(sum(tensor_bytes(r) * 2 + r.numel() // 32
                        for r in bfx_rows), 0)[0]
     phase(f"phase 3 K5 per MDRefactor at {N_MDR}^3 with bfx planes: {n5} "

@@ -27,7 +27,11 @@
 //   (sbc, 128) -> (4 sbc, 32), out = mul * x. In linear memory the two
 //   shapes are one layout (the TPU needed four strided DMAs because VMEM is
 //   tiled), so the question left is the staging:
-//     variant 0 "direct":  16-byte loads and stores, fully coalesced;
+//     variant 0 "direct":  a streaming copy: each thread issues U = 4
+//                          independent 16-byte loads (NT int4 apart, so
+//                          each is a 512-byte warp row) before any store,
+//                          a block for every NT * U int4, the ragged end
+//                          masked (see the note on P2 below);
 //     variant 1 "cpasync": 16-byte cp.async into shared memory, then one
 //                          warp per 32-word row (conflict-free);
 //     variant 2 "row32":   cp.async, then one THREAD per row at a pitch of
@@ -35,6 +39,15 @@
 //     variant 3 "row33":   the same at a pitch of 33 words (4-byte
 //                          cp.async, conflict-free).
 //   The forward probe doubles (mul = 2), the reverse copies (mul = 1).
+//   The direct copy is bound by bytes: 268 MB moved at the production
+//   shape (2^18 rows of 128 words), 0.0801 ms at 3.35 TB/s. On one NVIDIA
+//   H100 80GB HBM3 at 700.00 W (scripts/h100_relayout_direct.py, medians
+//   of single launches, alternating) it takes 0.0941 ms each way, as do
+//   PyTorch's reshape * 2 (0.0940) and reshape.clone (0.0938), about 85%
+//   of the bytes' rate; one int4 a thread took 0.0937. Streaming hints
+//   (__ldcs/__stcs) measured 0.0942-0.0952, one wave of blocks striding
+//   over the rows 0.0992: the copy is at the card's rate either way, and
+//   a full grid lets the block scheduler even out the end.
 // P3 probe_u16_planes (scripts/probe_u16.py): (S, 32) u16 -> (16, S) plane
 //   words, bit k of word (j, b) = bit j of symbol k of block b:
 //     variant 0 "ballot":    one warp per block, 16 __ballot_sync, as K2
@@ -107,14 +120,23 @@ dynwin_owner_kernel(const unsigned* __restrict__ planes,
 }
 
 // ---------------------------------------------------------------- P2
+constexpr int U = 4;  // int4 a thread keeps in flight (direct variant)
+
 __global__ void __launch_bounds__(NT)
 relayout_direct_kernel(const int4* __restrict__ x, int4* __restrict__ out,
                        long long n4, int mul) {
-  const long long t = (long long)blockIdx.x * NT + threadIdx.x;
-  if (t >= n4) return;
-  int4 v = x[t];
-  v.x *= mul; v.y *= mul; v.z *= mul; v.w *= mul;
-  out[t] = v;
+  const long long t0 = (long long)blockIdx.x * NT * U + threadIdx.x;
+  int4 v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (t0 + u * NT < n4) v[u] = x[t0 + u * NT];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (t0 + u * NT < n4) {
+      v[u].x *= mul; v[u].y *= mul; v[u].z *= mul; v[u].w *= mul;
+      out[t0 + u * NT] = v[u];
+    }
+  }
 }
 
 // A block stages NT rows of 32 words (NT * 128 bytes) in shared memory.
@@ -251,8 +273,8 @@ MGARD_EXPORT int probe_relayout(const void* x, void* out, long long nrows,
   int* oi = (int*)out;
   if (variant == 0) {
     const long long n4 = nrows * 8;
-    relayout_direct_kernel<<<(unsigned)((n4 + NT - 1) / NT), NT, 0, st>>>(
-        (const int4*)x, (int4*)out, n4, mul);
+    relayout_direct_kernel<<<(unsigned)((n4 + NT * U - 1) / (NT * U)), NT, 0,
+                             st>>>((const int4*)x, (int4*)out, n4, mul);
   } else if (variant == 1) {
     relayout_staged_kernel<32, false><<<tiles, NT, 0, st>>>(xi, oi, nrows,
                                                             mul);

@@ -17,11 +17,23 @@ keeps them true upper bounds. float64 streams take an exact float64 path.
 
 Kernel K9 (``csrc/bitplane.cu``, wrapper ``encode_core``) does the float32
 sign-magnitude encode of a level of at least ``_KERNEL_MIN`` elements (a
-whole number of them) in one pass: quantize, butterfly, planes and every
-table entry's per-warp partials. ``encode_core_plain`` beside it is its
-plain version. Smaller levels take the plain version on every device, as
-the JAX package runs XLA for them on a TPU too. Everything else (decode,
-NegaBinary, float64) is plain torch.
+whole number of them) in one launch: quantize, butterfly, planes and every
+table entry's partials, one partial per 32 columns. A block of four warps
+owns 32 columns, a column a lane: each warp quantizes eight rows of them
+and leaves each element's (magnitude, mask below its top bit, residue,
+magnitude as float) in a 16-byte slot of shared memory; warp 0 transposes
+the columns and stores the plane words as whole warp rows; then each warp
+takes a chunk of at most 9 of the B+1 table entries for the 32 columns
+and folds its lanes' column partials through shared memory. The kernel is
+bound by instruction issue, not bytes (six instructions per element and
+entry where the residual's remainder is below 2^23: the exact difference
+of two floats offset by 2^23 in place of an int-to-float conversion; at
+B = 32 the other 9 entries convert). Splitting the entries over four
+warps also fills the card at the coarse levels, where one thread a column
+walked all 33 entries alone. ``encode_core_plain``
+beside it is its plain version. Smaller levels take the plain version on
+every device, as the JAX package runs XLA for them on a TPU too.
+Everything else (decode, NegaBinary, float64) is plain torch.
 
 Packed words are int32 bit patterns (torch lacks shifts on uint32); logical
 right shifts mask the sign-extended bits.
@@ -45,8 +57,10 @@ _KERNEL_MIN = LANES * _MC
 
 # Inflation of the float32-path error tables: covers the residue's float32
 # representation (2 ulp) and the staged float32 square sums (a 32-term
-# stage per column and a 32-term stage per warp, then float64), so the
-# tables stay true upper bounds for retrieval planning.
+# stage per column and a 32-term stage per 32 columns, then float64: each
+# stage's relative error is below 32 * 2^-24 < 2e-6, K9's fused square
+# d*d + sq included), so the tables stay true upper bounds for retrieval
+# planning.
 _F32_SLACK = 1.0 + 1e-5
 _F32_SLACK_SQ = 1.0 + 1e-4
 
@@ -157,9 +171,9 @@ def _sm_residual(fxi, r, B: int, b: int):
 
 
 def _warp_partials(d):
-    """Per-warp table partials of one residual d (32, m) float32: max |d|
-    and sum d^2 over each group of 32 columns (a 32-term float32 stage per
-    column, then one per group) — the reduction K9 runs per warp."""
+    """Table partials of one residual d (32, m) float32: max |d| and sum d^2
+    over each group of 32 columns (a 32-term float32 stage per column, then
+    one per group) — the reduction K9 runs per block of 32 columns."""
     cmax = d.abs().amax(0)
     csq = (d * d).sum(0)
     pad = (-cmax.shape[0]) % LANES
@@ -170,7 +184,7 @@ def _warp_partials(d):
 
 
 def _finish_tables(emax_p, esq_p):
-    """Per-warp partials (W, B+1) -> unit tables (B+1,) float64, inflated."""
+    """Partials (W, B+1) -> unit tables (B+1,) float64, inflated."""
     em = emax_p.amax(0).to(_F64)
     es = esq_p.to(_F64).sum(0)
     return em * _F32_SLACK, es * _F32_SLACK_SQ
@@ -192,7 +206,8 @@ def _sm_planes_from_zt(zt, B: int):
 def encode_core_plain(v2d, exp, B: int):
     """Plain version of K9: v2d (32, m) float32, exp int32 scalar tensor ->
     (planes (B+1, m) int32 [sign, MSB..LSB], emax (W, B+1) float32,
-    esq (W, B+1) float32) with W = ceil(m/32) per-warp partials."""
+    esq (W, B+1) float32) with W = ceil(m/32) partials, one per 32
+    columns."""
     mag, remi, kc, sign = _int_quantize_f32(v2d, exp, B - 1,
                                             2 ** (B - 1) - 1)
     combined = mag | (sign << min(B, 31))

@@ -216,6 +216,10 @@ SHAPES = {
     "relayout": (256, 1 << 18),
     "u16": (4096, 1 << 22),
 }
+# P2's tail case: rows of 128 words whose int4 count (32 a row) is no
+# multiple of the 1024 a block of the direct variant moves, so its last
+# block is ragged, over more than one wave of blocks
+RELAYOUT_TAIL = (1 << 16) + 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LIBRARY_CALL = {"relayout": "reshape*2", "relayout_rev": "reshape.clone"}
 
@@ -243,7 +247,8 @@ def cases(device, seed: int = 0, production: bool = True):
     in reverse (LIBRARY_CALL names it).
     Bytes: each word the function must read, once, and each it must write,
     once; for P1 the rows this run's data holds, not the capacity. Without
-    `production`, the probes' own small shapes only."""
+    `production`, the probes' own small shapes only; with it, also P2's
+    ragged RELAYOUT_TAIL."""
     rng = np.random.default_rng(seed)
     take = slice(None) if production else slice(0, 1)
     for geom in SHAPES["dynwin"][take]:
@@ -252,7 +257,8 @@ def cases(device, seed: int = 0, production: bool = True):
                lambda v, a=args: dynwin_place(*a, variant=v),
                lambda a=args: dynwin_place_plain(*a), None,
                2 * args[3] * LANES * 4)
-    for sbc in SHAPES["relayout"][take]:
+    tail = (RELAYOUT_TAIL,) if production else ()
+    for sbc in SHAPES["relayout"][take] + tail:
         x = torch.from_numpy(rng.integers(0, 1 << 30, (sbc, LANES),
                                           dtype=np.int64).astype(np.int32))
         x = x.to(device)

@@ -152,3 +152,30 @@ def test_probe_shapes_are_the_ones_stated():
     assert W == bfp.SB_BLOCKS // bfp.LANES
     assert P.SHAPES["relayout"] == (256, 1 << 18)
     assert P.SHAPES["u16"] == (4096, 512 ** 3 // 32)
+
+
+def test_relayout_tail_is_ragged(monkeypatch):
+    """P2's tail case: its int4 count is no multiple of a direct block's
+    NT threads x U int4 (csrc/probes.cu), so the last block's masked end
+    runs, and it needs more blocks than an H100 holds at once (132 SMs x 8
+    blocks of 256); the plain version is the scripts' expectation there
+    too."""
+    import re
+
+    src = (pathlib.Path(P.__file__).resolve().parent / "csrc"
+           / "probes.cu").read_text()
+    NT = int(re.search(r"constexpr int NT = (\d+);", src).group(1))
+    U = int(re.search(r"constexpr int U = (\d+);", src).group(1))
+    n4 = P.RELAYOUT_TAIL * P.LANES // 4
+    assert n4 % (NT * U) and n4 // (NT * U) > 132 * 8
+    sbc = P.RELAYOUT_TAIL
+    x = np.random.default_rng(1).integers(0, 1 << 30, (sbc, 128),
+                                          dtype=np.int64).astype(np.int32)
+    got = P.relayout(torch.from_numpy(x), variant="direct")
+    np.testing.assert_array_equal(got.numpy(), x.reshape(sbc * 4, 32) * 2)
+    back = P.relayout(got // 2, reverse=True, variant="direct")
+    np.testing.assert_array_equal(back.numpy(), x)
+    monkeypatch.setattr(P, "SHAPES", {"dynwin": ((1, 1, 1),) * 2,
+                                      "relayout": (8, 8), "u16": (33, 33)})
+    tails = [c[1] for c in P.cases("cpu") if c[0].startswith("relayout")]
+    assert tails.count(sbc) == 2  # forward and reverse, on the card too
