@@ -71,8 +71,11 @@ Phases (each prints a line; any failure exits nonzero before the result):
      ragged tail shape), called, compared (max_abs_err 0) and timed here
      against its plain version and, where there is one, the PyTorch call
      that computes the same (P2's direct variant against it in alternating
-     rounds, medians of single launches); then one counted run of the
-     probes' own entry point (probes.run_all);
+     rounds, medians of single launches; P1's four variants as CUDA-graph
+     replays of the wrapper, one launch a call, beside a clone of the
+     content rows' bytes as a yardstick); then one counted run of the
+     probes' own entry point (probes.run_all), which must launch P1's run
+     and bulk variants;
  14. the generic compress surface at full size, each run checking its bound
      on the card and, for every call, the exact K2/K3 counts (one
      pre-sorted bfp.encode_core section each way, at most one
@@ -90,7 +93,21 @@ Phases (each prints a line; any failure exits nonzero before the result):
  18. compress_roi at 128^3 with an explicit mask and with roi_mask=None:
      error <= tol/16 inside the mask, <= tol outside;
  19. one small stream of each new kind written on the card and decoded on
-     the CPU, and the reverse.
+     the CPU, and the reverse;
+ 20. streams of the reference libraries (formats/ref_stream.py,
+     cpu_stream.py, mdrx_stream.py) on the card: the native host codecs
+     (native/lz4.cpp, huffdec.cpp) built with g++ into build/native/; each
+     reference-format golden of tests/golden decoded with
+     decompress(..., device="cuda") to a CUDA tensor and held as the tests
+     hold it (the reference decoder's output, or the input and the bound);
+     the Hybrid one refused (Failure); those with real zstd frames must
+     give BackendNotAvailableFailure on a host without zstandard, and are
+     printed by name; a 512^3 float32 X_LZ4 stream of the bench field
+     (tol 1e-3, s=inf, ABS) written with compress_reference on the card
+     and decoded there within the bound (ms each way, medians of 3, and
+     bytes); an MDR-X archive of a 256^3 field written with write_mdrx and
+     read back through MDRXArchive on the card at tol 1e-2 / 1e-3 / 1e-4,
+     each bound held, the bytes fetched printed.
 The second-to-last line is a JSON summary of the kernels: launches from the
 path each kernel belongs to (K1-K4 phase 4, K5-K8 phase 5, K9 phase 8,
 K10/K11 phase 12, the probe variants phase 13's counted run),
@@ -186,7 +203,8 @@ PROBE_REPLACES = {"dynwin": "scripts/probe_dynwin.py:61",
                   "u16": "scripts/probe_u16.py:42"}
 # Lane operations per 32-bit word moved (P1, P2) or per 32-symbol block
 # (P3), read off the kernels: an estimate, every variant is bound by bytes.
-PROBE_OPS = {"or": 6, "owner": 2, "direct": 2, "cpasync": 3, "row32": 5,
+PROBE_OPS = {"or": 6, "owner": 2, "run": 1, "bulk": 1, "direct": 2,
+             "cpasync": 3, "row32": 5,
              "row33": 5, "ballot": 32 * 58, "butterfly": 300}
 # rounds of 20 launches each in which P2's direct variant and its PyTorch
 # call alternate (phase 13)
@@ -413,6 +431,15 @@ def probe_phase(dev, kernels, rows, path_launches):
         want = plain()
         plain_ms = time_ms(plain, 2)
         lib_ms = None
+        if probe == "dynwin":
+            # yardstick, not the same function: a clone of a contiguous
+            # buffer of the content rows' bytes, as graph replays
+            total = want.shape[0] - shape[1] * shape[2]
+            buf = want[:total].clone()
+            phase(f"phase 13 dynwin {shape}: clone of the {total} content "
+                  f"rows ({buf.numel() * 4} bytes, a yardstick, not the "
+                  f"same function) {graph_ms(buf.clone):.4f} ms")
+            del buf
         if library is not None:
             if not torch.equal(library(), want):
                 raise AssertionError(f"probe {probe} at {shape}: "
@@ -434,7 +461,13 @@ def probe_phase(dev, kernels, rows, path_launches):
                                      f"differs from the plain version by "
                                      f"{err}")
             del got
-            ms, v_lib_ms, v_lib = time_ms(lambda: kern(v)), lib_ms, lib
+            if probe == "dynwin":
+                # P1 is one launch a call with no host-to-device copy, so
+                # the wrapper is captured and replayed: device time alone
+                ms = graph_ms(lambda: kern(v))
+            else:
+                ms = time_ms(lambda: kern(v))
+            v_lib_ms, v_lib = lib_ms, lib
             if v == "direct" and library is not None:
                 # the kernel against the PyTorch call, alternating, each
                 # launch timed: medians over DIRECT_ROUNDS x 20 launches
@@ -466,6 +499,10 @@ def probe_phase(dev, kernels, rows, path_launches):
     kernels.reset_launches()
     PR.run_all(dev, timed=False)
     counts = dict(kernels.LAUNCHES)
+    for v in ("run", "bulk"):
+        if counts[PR.counter("dynwin", v)] < 1:
+            raise AssertionError(f"P1's {v} variant was not launched in the "
+                                 "probe run")
     for name, row in rows.items():
         key = row.pop("counter")
         if counts[key] < 1:
@@ -777,6 +814,197 @@ def generic_phases(dev, M, kernels):
           f"the card and on the CPU, each decoded on both: statuses 0, card "
           f"vs CPU decode within 1e-5 (float32) / 1e-13 (float64), worst "
           f"{worst:.3f} of its limit")
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden")
+# reference-format goldens and how the tests of both packages check each
+# decode: (stream, shape, dtype, the reference decoder's own output or
+# None, its tolerance, the input the bound is held against or None, the
+# bound's norm ("linf", "l2" = RMS, None), the bound's limit)
+_IN65 = "ref_input_3d65_f32_lz4_abs.bin"
+REF_GOLDENS = [
+    ("ref_blob_3d65_f32_lz4_abs", (65,) * 3, "f4", None, 0, _IN65, "linf",
+     1e-3),
+    ("ref_blob_3d606570_f64_lz4_abs", (60, 65, 70), "f8", None, 0,
+     "ref_input_3d606570_f64_lz4_abs.bin", "linf", 1e-4),
+    ("ref_blob_3d65_f32_lz4_rel", (65,) * 3, "f4", None, 0,
+     "ref_input_3d65_f32_lz4_rel.bin", "rel", 1e-3),
+    ("ref_blob_3d65_f32_lz4_s0", (65,) * 3, "f4", None, 0,
+     "ref_input_3d65_f32_lz4_s0.bin", "l2", 1e-3),
+    ("ref_blob_3d65_f32_sdim", (65,) * 3, "f4", "ref_dec_3d65_f32_sdim",
+     2e-6, _IN65, "linf", 1e-3),
+    ("ref_blob_3d65_f32_hyb", (65,) * 3, "f4", None, 0, None, None, 0),
+    ("ref_blob_3d643333_f32_lz4_abs_dd", (64, 33, 33), "f4",
+     "ref_dec_3d643333_f32_lz4_abs_dd", 1e-5, None, None, 0),
+    ("ref_blob_3d643333_f32_lz4_s0_dd", (64, 33, 33), "f4",
+     "ref_dec_3d643333_f32_lz4_s0_dd", 1e-5, None, None, 0),
+    ("ref_blob_3d65_f32_huf_abs", (65,) * 3, "f4", None, 0,
+     "ref_input_3d65_f32_huf_abs.bin", "linf", 1e-3),
+    ("ref_blob_3d65_f32_huflz4_abs", (65,) * 3, "f4", None, 0,
+     "ref_input_3d65_f32_huflz4_abs.bin", "linf", 1e-3),
+    ("ref_blob_3d65_f32_hufzstd_s0", (65,) * 3, "f4", None, 0,
+     "ref_input_3d65_f32_hufzstd_s0.bin", "l2", 1e-3),
+] + [
+    (f"ref_blob_3d65_f32_{t}", (65,) * 3, "f4", f"ref_dec_3d65_f32_{t}", 1e-6,
+     _IN65, "linf", 1e-3)
+    for t in ("bdfixed", "bddelta", "bdoutlier", "symrans", "zrlerans")
+] + [
+    (f"xwrite_3d65_{t}", (65,) * 3, dt, f"xwrite_dec_3d65_{t}", atol, None,
+     None, 0)
+    for t, dt, atol in (("f32_abs", "f4", 1e-5), ("f32_s0", "f4", 1e-5),
+                        ("f64_abs", "f8", 1e-12))
+] + [
+    (f"cpuwrite_{t}", shape, dt, f"cpuwrite_dec_{t}",
+     2e-6 if dt == "f4" else 1e-12, None, None, 0)
+    for t, shape, dt in (("3d151617_f64_sinf", (15, 16, 17), "f8"),
+                         ("3d151617_f64_s0", (15, 16, 17), "f8"),
+                         ("3d9917_f32_sinf", (9, 9, 17), "f4"),
+                         ("2d179_f64_nonuni", (17, 9), "f8"))
+]
+
+
+def cpu_goldens():
+    """The reference CPU library's streams (the manifests of
+    tests/golden/generate_cpu_stream.sh), and the names of those whose
+    payload is a real zstd frame."""
+    out, zstd = [], set()
+    for variant in ("zstd", "zlib"):
+        with open(os.path.join(GOLDEN, f"cpu_manifest_{variant}.json")) as f:
+            for e in json.load(f):
+                if not e:
+                    continue
+                dt = "f4" if e["dtype"] == "f32" else "f8"
+                tag = e["tag"]
+                bound = e["s"] == "inf"
+                out.append((f"cpu_stream_{tag}", tuple(e["shape"]), dt,
+                            f"cpu_output_{tag}",
+                            2e-6 if dt == "f4" else 1e-12,
+                            f"cpu_input_{tag}.bin" if bound else None,
+                            "linf" if bound else None, e["tol"]))
+                if variant == "zstd":
+                    zstd.add(f"cpu_stream_{tag}")
+    return out, zstd
+
+
+def reference_phase(dev, M):
+    """Phase 20: streams of the reference libraries on the card. Every
+    reference-format golden decoded onto the card and held as the tests
+    hold it; a 512^3 X_LZ4 stream written and read on the card; an MDR-X
+    archive of a 256^3 field written and read back at three
+    tolerances."""
+    from mgard_tpu_torch import native
+    from mgard_tpu_torch.formats import mdrx_stream as MX, ref_stream as RS
+    from mgard_tpu_torch.lossless import host
+
+    t0 = time.perf_counter()
+    libs = [native.load(n) for n in ("lz4", "huffdec")]
+    phase(f"phase 20 native: lz4.cpp and huffdec.cpp built into "
+          f"{os.path.relpath(native.BUILD_DIR)} and loaded ({len(libs)}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def load(name, dt, shape):
+        return np.fromfile(os.path.join(GOLDEN, name), dt).reshape(shape)
+
+    st = M.compress_status_type
+    zstd_refused, decoded, worst = [], 0, 0.0
+    cpu, zstd_frames = cpu_goldens()
+    goldens = REF_GOLDENS + cpu
+    # the streams whose sections are real zstd frames (zstandard reads them)
+    zstd_frames.add("ref_blob_3d65_f32_hufzstd_s0")
+    for name, shape, dt, dec, atol, inp, norm, lim in goldens:
+        with open(os.path.join(GOLDEN, name + ".mgard"), "rb") as f:
+            blob = f.read()
+        out, status = M.decompress(blob, device=dev)
+        if name.endswith("_hyb"):
+            # the reference's Hybrid layout is refused, as in the JAX package
+            if out is not None or status != st.Failure:
+                raise AssertionError(f"phase 20 {name}: {status}, not "
+                                     "Failure")
+            continue
+        if name in zstd_frames and not host.have_zstd():
+            if out is not None or status != st.BackendNotAvailableFailure:
+                raise AssertionError(f"phase 20 {name}: {status} without "
+                                     "zstandard")
+            zstd_refused.append(name)
+            continue
+        if status != st.Success or out.device.type != "cuda" or \
+                tuple(out.shape) != shape or \
+                out.dtype != (torch.float32 if dt == "f4" else torch.float64):
+            raise AssertionError(f"phase 20 {name}: {status}, "
+                                 f"{None if out is None else out.device}")
+        got = out.cpu().numpy().astype(np.float64)
+        if dec is not None:
+            d = float(np.abs(got - load(dec + ".bin", dt, shape)).max())
+            if not d <= atol:
+                raise AssertionError(f"phase 20 {name}: {d} from the "
+                                     f"reference decoder's output > {atol}")
+            worst = max(worst, d / atol)
+        if inp is not None:
+            v = load(inp, dt, shape).astype(np.float64)
+            diff = got - v
+            err = (float(np.sqrt(np.mean(diff ** 2))) if norm == "l2"
+                   else float(np.abs(diff).max()))
+            bnd = lim * (float(np.abs(v).max()) if norm == "rel" else 1.0)
+            if not err <= bnd:
+                raise AssertionError(f"phase 20 {name}: error {err} > {bnd}")
+        decoded += 1
+    phase(f"phase 20 goldens: {decoded} of {len(goldens)} reference-format "
+          f"streams decoded onto the card within their checks (worst "
+          f"{worst:.3f} of the tolerance against the reference decoder's "
+          f"output), the Hybrid one refused (Failure); "
+          f"{len(zstd_refused)} with real zstd frames gave "
+          f"BackendNotAvailableFailure (zstandard "
+          f"{'present' if host.have_zstd() else 'absent'}): "
+          f"{', '.join(sorted(zstd_refused))}")
+
+    # 512^3 X_LZ4 stream written and read on the card
+    v = bench_field(N_MAIN, dev)
+    enc, dec_ms = [], []
+    for _ in range(3):
+        blob, ms = timed(lambda: RS.compress_reference(
+            v, TOL, math.inf, M.error_bound_type.ABS))
+        enc.append(ms)
+    for _ in range(3):
+        (out, status), ms = timed(lambda: M.decompress(blob, device=dev))
+        dec_ms.append(ms)
+    h = RS.parse_header(blob)
+    err = float((out - v).abs().max()) if out is not None else math.inf
+    if status != st.Success or out.device.type != "cuda" or \
+            h.compressor != RS.ENC_X_LZ4 or not err <= TOL:
+        raise AssertionError(f"phase 20 X_LZ4 {N_MAIN}^3: {status}, "
+                             f"compressor {h.compressor}, L-inf {err}")
+    phase(f"phase 20 X_LZ4 reference stream {N_MAIN}^3 f32 tol={TOL} s=inf "
+          f"ABS on the card: {len(blob)} bytes (ratio "
+          f"{v.numel() * 4 / len(blob):.4f}), L-inf {err:.6g}; "
+          f"compress_reference {statistics.median(enc):.1f} ms, decompress "
+          f"{statistics.median(dec_ms):.1f} ms (host clock, medians of 3)")
+    del out, v, blob
+
+    # an MDR-X archive of a 256^3 field, read back at three tolerances
+    v = bench_field(N_CROSS, dev)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_mdrx")
+    _, ms = timed(lambda: MX.write_mdrx(path, v))
+    files = os.listdir(path)
+    size = sum(os.path.getsize(os.path.join(path, n)) for n in files)
+    a = MX.MDRXArchive(path, dev)
+    parts = []
+    for tol in (1e-2, 1e-3, 1e-4):
+        planes = a.request(tol)
+        fetched = sum(int(a.md.level_sizes[l][g])
+                      for l, k in enumerate(planes)
+                      for g in range(0, k, 4))
+        out, rms = timed(lambda: a.reconstruct(tol))
+        err = float((out - v).abs().max())
+        if out.device.type != "cuda" or not err <= tol:
+            raise AssertionError(f"phase 20 MDR-X tol {tol:g}: L-inf {err} "
+                                 f"on {out.device}")
+        parts.append(f"tol {tol:g}: {fetched} bytes fetched, L-inf "
+                     f"{err:.3g}, {rms:.1f} ms")
+    phase(f"phase 20 MDR-X archive {N_CROSS}^3 f32: write_mdrx {ms:.1f} ms, "
+          f"{len(files)} files, {size} bytes; MDRXArchive on the card: "
+          + "; ".join(parts))
 
 
 def main():
@@ -1983,6 +2211,10 @@ def main():
     probe_phase(dev, kernels, probe_rows, path_launches)
     torch.cuda.empty_cache()
     generic_phases(dev, M, kernels)
+
+    # -- 20. streams of the reference libraries -------------------------
+    torch.cuda.empty_cache()
+    reference_phase(dev, M)
 
     print(smi[0], flush=True)
     print(json.dumps({"kernels": [

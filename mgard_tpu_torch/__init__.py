@@ -7,8 +7,12 @@ It covers ``compress``/``decompress``/``compress_roi`` of 1D-5D float32 and
 float64 fields (s = inf and finite s, ABS and REL bounds, the Hybrid,
 MultiDim and SingleDim decompositions, non-uniform grids) with the BFP or
 BFX lossless stage, ``norm`` (the s-norms the bounds are stated in), and
-the MDR progressive refactor/retrieval API (``mgard_tpu_torch.mdr``). The hand-written CUDA kernels live in ``csrc/`` and are built at
-first use (``kernels.py``). Entry points run on the CUDA card unless the
+the MDR progressive refactor/retrieval API (``mgard_tpu_torch.mdr``).
+``decompress`` also reads the streams the reference MGARD libraries write;
+``formats/`` holds their readers and writers (MGARD-X, the CPU generation,
+MDR-X archives), with host byte codecs in ``native/``. The hand-written
+CUDA kernels live in ``csrc/`` and are built at first use
+(``kernels.py``). Entry points run on the CUDA card unless the
 caller asks for the CPU (``device="cpu"``).
 """
 

@@ -13,16 +13,44 @@
 //
 // P1 probe_dynwin (replaces the pallas_call of scripts/probe_dynwin.py):
 //   planes (NSB, E, W, 128) u32 with rows past each plane's row count zero;
-//   out rows sb_off[i] + woff[i][j] + w = planes[i][j][w]. The TPU kernel
-//   ORs W-row windows into VMEM and DMAs a whole capacity, later grid steps
-//   overwriting the spill; blocks on this card run in no order, so both
-//   variants write exactly tot[i] rows of superblock i, in tiles of TILE
-//   rows, one block per (superblock, tile):
-//     variant 0 "or":    zero a shared tile, OR in every window that meets
+//   out rows sb_off[i] + woff[i][j] + w = planes[i][j][w], then E*W zero
+//   capacity rows. The TPU kernel ORs W-row windows into VMEM and DMAs a
+//   whole capacity, later grid steps overwriting the spill; blocks on this
+//   card run in no order, so every variant writes each output row once. A
+//   superblock's row count tot[i] is sb_off[i+1] - sb_off[i], the last
+//   one's total_rows - sb_off[NSB-1]; each variant derives it and zeroes the
+//   tail itself, so a call is one launch. Four variants:
+//     variant 0 "or":    one block per (superblock, tile of TILE rows):
+//                        zero a shared tile, OR in every window that meets
 //                        it, plane after plane, then store the tile;
-//     variant 1 "owner": output row r copies the one plane that owns it
-//                        (the last j with woff[j] <= r): no shared memory,
-//                        no read-modify-write.
+//     variant 1 "owner": the same tiles; output row r copies the one plane
+//                        that owns it (the last j with woff[j] <= r), a
+//                        warp a row, found by a search through woff;
+//     variant 2 "run":   plane (i, j) holds n = woff[i][j+1] - woff[i][j]
+//                        content rows (the last plane tot[i] - woff), one
+//                        contiguous run at both ends, so P1 is NSB*E
+//                        independent copies of 512 B to W*512 B: one block
+//                        a run, each thread keeping U = 4 independent
+//                        16-byte loads in flight before its stores (as P2's
+//                        direct copy); no search, no shared memory. The E
+//                        blocks of one more grid row zero W tail rows each;
+//     variant 3 "bulk":  the same runs by the Tensor Memory Accelerator:
+//                        one thread a block copies its run global -> shared
+//                        in pieces of at most PIECE bytes (cp.async.bulk,
+//                        completed on an mbarrier, two pieces in flight)
+//                        and shared -> global (cp.async.bulk bulk_group),
+//                        2 * PIECE bytes of dynamic shared memory.
+//   Bound by bytes: at the production shape (256, 8, 128), seed 0, the
+//   content rows are read once and written once and the tail written, about
+//   139 MB, 0.0415 ms at 3.35 TB/s. On one NVIDIA H100 80GB HBM3 at
+//   700.00 W (scripts/h100_dynwin.py, CUDA-graph replays, medians) bulk
+//   takes 0.0497-0.0504 ms, run 0.0508-0.0518, owner 0.0515-0.0517 (about
+//   82% of the byte rate), or 0.1006-0.1010, and a clone of the content
+//   bytes 0.0586-0.0592; the parent design's owner kernel alone took
+//   0.0517, so its 0.15 ms readings were mostly the wrapper's host work
+//   (a host-to-device copy, torch.diff and the tail fill), which is now
+//   gone. bulk is the wrapper's default; run with eight int4 a thread in
+//   flight matched it (0.0499), with four it stays as written.
 // P2 probe_relayout (scripts/probe_strided_dma.py, both pallas_calls):
 //   (sbc, 128) -> (4 sbc, 32), out = mul * x. In linear memory the two
 //   shapes are one layout (the TPU needed four strided DMAs because VMEM is
@@ -65,18 +93,48 @@ namespace {
 
 constexpr int NT = 256;
 constexpr int LANES = 128;  // words per row of P1
-constexpr int TILE = 32;    // rows per tile of P1
+constexpr int TILE = 32;    // rows per tile of P1 (or, owner)
+constexpr int U = 4;        // int4 a thread keeps in flight (run, P2 direct)
+constexpr int NT_BULK = 128;
+constexpr int PIECE = 32 * 1024;  // bytes a bulk copy moves at a time
 
 // ---------------------------------------------------------------- P1
+// rows of superblock i: up to the next superblock's offset, the last one up
+// to total_rows
+__device__ __forceinline__ int sb_rows(const int* sb_off, int i, int NSB,
+                                       int total_rows) {
+  return (i + 1 < NSB ? sb_off[i + 1] : total_rows) - sb_off[i];
+}
+
+// zero n4 int4 from dst on, the block's nt threads striding
+__device__ __forceinline__ void zero_rows(uint4* dst, long long n4, int nt) {
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  for (long long t = threadIdx.x; t < n4; t += nt) dst[t] = z;
+}
+
+// or/owner: grid (NSB + 1, tiles); row NSB zeroes tile blockIdx.y of the
+// E*W tail rows, returns true for those blocks
+__device__ __forceinline__ bool tail_tile(unsigned* out, int NSB, int E,
+                                          int W, int total_rows) {
+  if ((int)blockIdx.x != NSB) return false;
+  const int r0 = blockIdx.y * TILE;
+  const int rows = min(TILE, E * W - r0);
+  zero_rows(reinterpret_cast<uint4*>(out + ((long long)total_rows + r0) *
+                                               LANES),
+            (long long)rows * (LANES / 4), NT);
+  return true;
+}
+
 __global__ void __launch_bounds__(NT)
 dynwin_or_kernel(const unsigned* __restrict__ planes,
                  const int* __restrict__ woff, const int* __restrict__ sb_off,
-                 const int* __restrict__ tot, unsigned* __restrict__ out,
-                 int E, int W) {
+                 unsigned* __restrict__ out, int NSB, int E, int W,
+                 int total_rows) {
   __shared__ unsigned tile[TILE * LANES];
+  if (tail_tile(out, NSB, E, W, total_rows)) return;
   const int i = blockIdx.x;
   const int r0 = blockIdx.y * TILE;
-  const int rows = min(TILE, tot[i] - r0);
+  const int rows = min(TILE, sb_rows(sb_off, i, NSB, total_rows) - r0);
   if (rows <= 0) return;
   for (int t = threadIdx.x; t < TILE * LANES; t += NT) tile[t] = 0u;
   __syncthreads();
@@ -98,12 +156,12 @@ dynwin_or_kernel(const unsigned* __restrict__ planes,
 __global__ void __launch_bounds__(NT)
 dynwin_owner_kernel(const unsigned* __restrict__ planes,
                     const int* __restrict__ woff,
-                    const int* __restrict__ sb_off,
-                    const int* __restrict__ tot, unsigned* __restrict__ out,
-                    int E, int W) {
+                    const int* __restrict__ sb_off, unsigned* __restrict__ out,
+                    int NSB, int E, int W, int total_rows) {
+  if (tail_tile(out, NSB, E, W, total_rows)) return;
   const int i = blockIdx.x;
   const int r0 = blockIdx.y * TILE;
-  const int rows = min(TILE, tot[i] - r0);
+  const int rows = min(TILE, sb_rows(sb_off, i, NSB, total_rows) - r0);
   if (rows <= 0) return;
   const uint4* src = reinterpret_cast<const uint4*>(planes);
   uint4* dst = reinterpret_cast<uint4*>(out);
@@ -119,8 +177,124 @@ dynwin_owner_kernel(const unsigned* __restrict__ planes,
   }
 }
 
+// run/bulk: grid (E, NSB + 1). Block (j, i < NSB) owns plane (i, j): its
+// source, destination and int4 count; block (j, NSB) the tail rows
+// [total_rows + j*W, total_rows + (j+1)*W), src null.
+struct Run {
+  const uint4* src;
+  uint4* dst;
+  long long n4;
+};
+
+__device__ __forceinline__ Run plane_run(const uint4* planes, const int* woff,
+                                         const int* sb_off, uint4* out,
+                                         int NSB, int E, int W,
+                                         int total_rows) {
+  const int j = blockIdx.x, i = blockIdx.y;
+  const long long w4 = (long long)W * (LANES / 4);
+  if (i == NSB)
+    return {nullptr, out + ((long long)total_rows + (long long)j * W) *
+                               (LANES / 4), w4};
+  const int o = woff[i * E + j];
+  const int end = j + 1 < E ? woff[i * E + j + 1]
+                            : sb_rows(sb_off, i, NSB, total_rows);
+  return {planes + (long long)(i * E + j) * w4,
+          out + ((long long)sb_off[i] + o) * (LANES / 4),
+          (long long)(end - o) * (LANES / 4)};
+}
+
+__global__ void __launch_bounds__(NT)
+dynwin_run_kernel(const uint4* __restrict__ planes,
+                  const int* __restrict__ woff, const int* __restrict__ sb_off,
+                  uint4* __restrict__ out, int NSB, int E, int W,
+                  int total_rows) {
+  const Run r = plane_run(planes, woff, sb_off, out, NSB, E, W, total_rows);
+  if (r.src == nullptr) {
+    zero_rows(r.dst, r.n4, NT);
+    return;
+  }
+  for (long long t0 = threadIdx.x; t0 < r.n4; t0 += NT * U) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (t0 + u * NT < r.n4) v[u] = r.src[t0 + u * NT];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (t0 + u * NT < r.n4) r.dst[t0 + u * NT] = v[u];
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+__global__ void __launch_bounds__(NT_BULK)
+dynwin_bulk_kernel(const uint4* __restrict__ planes,
+                   const int* __restrict__ woff,
+                   const int* __restrict__ sb_off, uint4* __restrict__ out,
+                   int NSB, int E, int W, int total_rows) {
+  extern __shared__ __align__(128) unsigned char buf[];  // 2 * PIECE
+  __shared__ __align__(8) unsigned long long bars[2];
+  const Run r = plane_run(planes, woff, sb_off, out, NSB, E, W, total_rows);
+  if (r.src == nullptr) {
+    zero_rows(r.dst, r.n4, NT_BULK);
+    return;
+  }
+  if (threadIdx.x != 0 || r.n4 <= 0) return;
+  const long long bytes = r.n4 * 16;
+  const int pieces = (int)((bytes + PIECE - 1) / PIECE);
+  const unsigned b0 = smem_addr(buf), bar0 = smem_addr(bars);
+  for (int k = 0; k < 2; ++k)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(bar0 + 8 * k) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  const char* src = reinterpret_cast<const char*>(r.src);
+  char* dst = reinterpret_cast<char*>(r.dst);
+  auto len = [&](int p) {
+    return (unsigned)min((long long)PIECE, bytes - (long long)p * PIECE);
+  };
+  for (int p = 0; p < 2 && p < pieces; ++p)
+    bulk_load(b0 + p * PIECE, src + (long long)p * PIECE, len(p),
+              bar0 + 8 * p);
+  for (int p = 0; p < pieces; ++p) {
+    const int k = p & 1;
+    bar_wait(bar0 + 8 * k, (p >> 1) & 1);
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        :: "l"(dst + (long long)p * PIECE), "r"(b0 + k * PIECE), "r"(len(p))
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    if (p + 2 < pieces) {
+      // buffer k is free once the store just issued has read it
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      bulk_load(b0 + k * PIECE, src + (long long)(p + 2) * PIECE,
+                len(p + 2), bar0 + 8 * k);
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- P2
-constexpr int U = 4;  // int4 a thread keeps in flight (direct variant)
 
 __global__ void __launch_bounds__(NT)
 relayout_direct_kernel(const int4* __restrict__ x, int4* __restrict__ out,
@@ -238,25 +412,45 @@ u16_butterfly_kernel(const uint4* __restrict__ zz, unsigned* __restrict__ out,
 
 }  // namespace
 
-// planes: (NSB, E, W, 128) u32; woff: (NSB, E); sb_off, tot: (NSB,); out:
-// (sum(tot) + E*W, 128), of which rows [sb_off[i], sb_off[i] + tot[i]) are
-// written here. variant 0 = or, 1 = owner.
+// planes: (NSB, E, W, 128) u32; woff: (NSB, E); sb_off: (NSB,); out:
+// (total_rows + E*W, 128), every row written here (the last E*W zero).
+// variant 0 = or, 1 = owner, 2 = run, 3 = bulk. One launch.
 MGARD_EXPORT int probe_dynwin(const void* planes, const void* woff,
-                              const void* sb_off, const void* tot, void* out,
-                              int NSB, int E, int W, int variant,
+                              const void* sb_off, void* out, int NSB, int E,
+                              int W, int total_rows, int variant,
                               void* stream) {
-  if (NSB <= 0 || E <= 0 || W <= 0 || variant < 0 || variant > 1)
+  if (NSB <= 0 || E <= 0 || W <= 0 || total_rows < 0 || variant < 0 ||
+      variant > 3)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)NSB, (unsigned)((E * W + TILE - 1) / TILE));
   const cudaStream_t st = (cudaStream_t)stream;
-  if (variant == 0)
-    dynwin_or_kernel<<<grid, NT, 0, st>>>(
-        (const unsigned*)planes, (const int*)woff, (const int*)sb_off,
-        (const int*)tot, (unsigned*)out, E, W);
-  else
-    dynwin_owner_kernel<<<grid, NT, 0, st>>>(
-        (const unsigned*)planes, (const int*)woff, (const int*)sb_off,
-        (const int*)tot, (unsigned*)out, E, W);
+  const unsigned* pl = (const unsigned*)planes;
+  const int* wo = (const int*)woff;
+  const int* so = (const int*)sb_off;
+  if (variant <= 1) {
+    const dim3 grid((unsigned)NSB + 1, (unsigned)((E * W + TILE - 1) / TILE));
+    if (variant == 0)
+      dynwin_or_kernel<<<grid, NT, 0, st>>>(pl, wo, so, (unsigned*)out, NSB,
+                                            E, W, total_rows);
+    else
+      dynwin_owner_kernel<<<grid, NT, 0, st>>>(pl, wo, so, (unsigned*)out,
+                                               NSB, E, W, total_rows);
+    return mgard_launch_status();
+  }
+  if (!mgard_aligned16(planes) || !mgard_aligned16(out))
+    return (int)cudaErrorMisalignedAddress;
+  const dim3 grid((unsigned)E, (unsigned)NSB + 1);
+  const uint4* p4 = (const uint4*)planes;
+  if (variant == 2) {
+    dynwin_run_kernel<<<grid, NT, 0, st>>>(p4, wo, so, (uint4*)out, NSB, E, W,
+                                           total_rows);
+    return mgard_launch_status();
+  }
+  struct BulkTag {};
+  const cudaError_t e = mgard_set_attributes<BulkTag>(
+      {(const void*)dynwin_bulk_kernel}, 2 * PIECE, false);
+  if (e != cudaSuccess) return mgard_launch_status(e);
+  dynwin_bulk_kernel<<<grid, NT_BULK, 2 * PIECE, st>>>(p4, wo, so, (uint4*)out,
+                                                       NSB, E, W, total_rows);
   return mgard_launch_status();
 }
 

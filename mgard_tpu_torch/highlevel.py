@@ -41,9 +41,11 @@ runs on the device it lives on; a NumPy input goes to ``device``, and
 ``decompress`` decodes onto ``device``: the CUDA card unless the caller
 asks for the CPU (``device="cpu"``). Without a CUDA device a call that asks
 for the card raises RuntimeError; it does not run on the CPU instead.
-Requests outside the ported paths (the ZFP compressor, the Huffman-class
-backends, the zstd second stage) raise NotImplementedError naming the
-ROADMAP item that brings them.
+``decompress`` also reads the streams the reference libraries write
+(``formats/ref_stream.py``: MGARD-X and the CPU generation). Requests
+outside the ported paths (the ZFP compressor, the Huffman-class backends,
+the zstd second stage) raise NotImplementedError naming the ROADMAP item
+that brings them.
 
 Three points where the port departs from the JAX package on purpose, each a
 defect recorded against the reference: the demotion gate reduces the cast
@@ -82,6 +84,7 @@ from .formats import ref_stream
 from .formats.metadata import FormatError, Metadata
 from .hierarchy import get_hierarchy
 from .lossless import bfp as _bfp, bfx as _bfx
+from .lossless.host import ZstdNotAvailable
 from .lossless.registry import lossless_decompress, section_parts
 from .ops import hybrid as Hy, quantize as Q
 from .ops.refactor import (
@@ -898,12 +901,24 @@ def _decode_section(blob, pos: int, meta, hier, cfg: Config, local_tol,
 def decompress(blob: bytes, config: Optional[Config] = None,
                device=None) -> Tuple[Optional[torch.Tensor],
                                      compress_status_type]:
-    """Decompress a stream of either package onto ``device`` (default the
-    CUDA card). Returns (tensor, status). A stream written by the reference
-    MGARD-X library raises NotImplementedError (not ported yet)."""
+    """Decompress a stream onto ``device`` (default the CUDA card).
+    Returns (tensor, status). Besides the streams of either package, it
+    reads the streams the reference libraries write (MGARD-X and the CPU
+    generation; ``formats/ref_stream.py``), as the reference's own
+    sniffing dispatch does (compress_internal.cpp:5-13). A zstd section on
+    a host without the zstandard package gives BackendNotAvailableFailure."""
     device = resolve_device(device)
     if ref_stream.sniff(bytes(blob[:8])):
-        _todo("reference-written streams", "ROADMAP queue 1 item 12")
+        try:
+            out, _h = ref_stream.decompress_reference(blob, device)
+            return out, compress_status_type.Success
+        except ZstdNotAvailable:
+            return None, compress_status_type.BackendNotAvailableFailure
+        except (FormatError, struct.error, ValueError, IndexError, KeyError):
+            import traceback
+
+            traceback.print_exc()
+            return None, compress_status_type.Failure
     try:
         meta, off = Metadata.deserialize(blob)
     except (FormatError, struct.error):

@@ -62,8 +62,8 @@ _SIGNATURES = {
     # base, crl, resid, rem, q, out, X, Y, Z, nl, K, E, stream
     "hybrid_unpack_v3": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
     # the layout probes P1-P3 (csrc/probes.cu), each with a variant number:
-    # planes, woff, sb_off, tot, out, NSB, E, W, variant, stream
-    "probe_dynwin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # planes, woff, sb_off, out, NSB, E, W, total_rows, variant, stream
+    "probe_dynwin": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out, rows of 32 words, mul, variant, stream
     "probe_relayout": [_P, _P, _L, _I, _I, _P],
     # zz, out, S, variant, stream
@@ -71,7 +71,8 @@ _SIGNATURES = {
 }
 # A probe's launches are counted per variant, under these names.
 _PROBE_COUNTERS = (
-    "probe_dynwin_or", "probe_dynwin_owner", "probe_relayout_direct",
+    "probe_dynwin_or", "probe_dynwin_owner", "probe_dynwin_run",
+    "probe_dynwin_bulk", "probe_relayout_direct",
     "probe_relayout_cpasync", "probe_relayout_row32", "probe_relayout_row33",
     "probe_u16_ballot", "probe_u16_butterfly")
 

@@ -1,2 +1,3 @@
-"""Lossless stage of the PyTorch port: the BFP codec and the section
-framing (``registry.py``)."""
+"""Lossless stage of the PyTorch port: the BFP and BFX codecs, the section
+framing (``registry.py``) and the host byte codecs (``host.py``,
+``lz4.py``)."""

@@ -416,7 +416,9 @@ def _mass_trans_single_x(coeff, d, al):
     its boundary guards: the last coarse node takes NO contribution (b
     requires j < n_coeff, and the h windows stop at n_coeff+nc-1), a
     reference quirk that is self-consistent between its decompose and
-    recompose, so a cross-decoder must reproduce it exactly. Host NumPy."""
+    recompose, so a cross-decoder must reproduce it exactly. The tables
+    are host NumPy; the coefficients stay where they are (NumPy, or a
+    float64 tensor on its device)."""
     nf, nc = al.n_fine, al.n_coarse
     ncf = nf - nc
     h = np.zeros(2 * nc + 2, np.float64)
@@ -430,16 +432,27 @@ def _mass_trans_single_x(coeff, d, al):
     h2 = np.where(c1, h[np.maximum(2 * j - 1, 0)], 0.0)
     h3 = np.where(c2, h[2 * j], 0.0)
     h4 = np.where(c2, h[2 * j + 1], 0.0)
-
-    cm = np.moveaxis(np.asarray(coeff, np.float64), d, -1)
     bsel = (j > 0) & (j < ncf)
     dsel = j < ncf
-    b = np.zeros(cm.shape[:-1] + (nc,), np.float64)
-    dd = np.zeros_like(b)
-    b[..., bsel] = cm[..., (j[bsel] - 1)]
-    dd[..., dsel] = cm[..., j[dsel]]
+
+    if _be.is_np(coeff):
+        cm = np.moveaxis(np.asarray(coeff, np.float64), d, -1)
+        b = np.zeros(cm.shape[:-1] + (nc,), np.float64)
+        dd = np.zeros_like(b)
+        b[..., bsel] = cm[..., (j[bsel] - 1)]
+        dd[..., dsel] = cm[..., j[dsel]]
+    else:
+        cm = coeff.to(torch.float64).movedim(d, -1)
+        tab = lambda a: torch.as_tensor(a, device=cm.device)  # noqa: E731
+        h1, h2, h3, h4 = map(tab, (h1, h2, h3, h4))
+        b = torch.zeros(cm.shape[:-1] + (nc,), dtype=torch.float64,
+                        device=cm.device)
+        dd = torch.zeros_like(b)
+        b[..., tab(bsel)] = cm[..., tab(j[bsel] - 1)]
+        dd[..., tab(dsel)] = cm[..., tab(j[dsel])]
     out = 2 * b * (h1 / 6) + (b * h2 + dd * h3) / 6 + 2 * dd * (h4 / 6)
-    return np.moveaxis(out, -1, d)
+    return (np.moveaxis(out, -1, d) if _be.is_np(out)
+            else out.movedim(-1, d))
 
 
 def recompose_single_x(u, hier: Hierarchy):
@@ -449,9 +462,10 @@ def recompose_single_x(u, hier: Hierarchy):
     dims > curr_dim still at the coarse level; coefficients sit at offset
     level_shape(l, curr_dim) along curr_dim; the correction and lerp are
     the same per-axis 1D operators as ours). For reference-written
-    SingleDim streams (host NumPy); the port's own SingleDim streams keep
-    the rotated-concat layout of decompose_single."""
-    v = np.asarray(u).copy()
+    SingleDim streams, on a NumPy array or a tensor on its own device; the
+    port's own SingleDim streams keep the rotated-concat layout of
+    decompose_single."""
+    v = np.asarray(u).copy() if _be.is_np(u) else u.clone()
     D = hier.D
     for l in range(hier.l_target):
         for d in range(D):
@@ -461,7 +475,7 @@ def recompose_single_x(u, hier: Hierarchy):
             )
             al = hier.axis[l][d]
             nf, nc = al.n_fine, al.n_coarse
-            box = v[tuple(slice(0, s) for s in fine_shape)].copy()
+            box = v[tuple(slice(0, s) for s in fine_shape)]
             coarse = _be.sl(box, d, 0, nc)
             coeff = _be.sl(box, d, nc, nf)
             corr = tridiag_solve_axis(

@@ -8,9 +8,14 @@ compute what the probes compute and put the same questions to the card, in
 the variants the answer chooses between (``VARIANTS``):
 
 - P1 ``dynwin_place``: place the residual planes of each superblock at
-  content-dependent row offsets. "or": zero a shared tile and OR the plane
-  windows in, as the TPU kernel did in VMEM; "owner": each output row
-  copies the one plane that owns it. Both write exactly tot[i] rows.
+  content-dependent row offsets, then E*W zero capacity rows. Each plane's
+  content rows are one contiguous run at both ends: "bulk" (the default,
+  the fastest on an H100) copies a run per block by TMA bulk copies
+  through shared memory, "run" by 16-byte loads, four in flight a thread;
+  "or": zero a shared tile and OR the plane windows in, as the TPU kernel
+  did in VMEM; "owner": each output row copies the one plane that owns it.
+  Every variant writes each output row once, the tail included, in one
+  launch.
 - P2 ``relayout``: (sbc, 128) <-> (4 sbc, 32) with the rows doubled on the
   way forward. One layout in linear memory; the variants differ in staging:
   "direct" 16-byte loads, "cpasync" through shared memory with a warp per
@@ -39,7 +44,7 @@ _I32 = torch.int32
 LANES = 128
 
 VARIANTS = {
-    "dynwin": ("or", "owner"),
+    "dynwin": ("or", "owner", "run", "bulk"),
     "relayout": ("direct", "cpasync", "row32", "row33"),
     "u16": ("ballot", "butterfly"),
 }
@@ -94,18 +99,13 @@ def _dynwin_check(planes, woff, sb_off):
     return NSB, E, W
 
 
-def _dynwin_tot(sb_off, total_rows: int):
-    end = torch.tensor([total_rows], dtype=_I32, device=sb_off.device)
-    return torch.diff(sb_off, append=end).contiguous()
-
-
 def dynwin_place_plain(planes, woff, sb_off, total_rows: int):
     """Plain version of P1: (total_rows + E*W, 128) int32, superblock i's
     planes concatenated at row sb_off[i], plane j at woff[i, j], the E*W
     capacity rows past the end zero."""
     NSB, E, W = _dynwin_check(planes, woff, sb_off)
-    tot = _dynwin_tot(sb_off, total_rows)
-    nxt = torch.cat([woff[:, 1:], tot[:, None]], dim=1)
+    end = torch.cat([sb_off[1:], sb_off.new_full((1,), total_rows)])
+    nxt = torch.cat([woff[:, 1:], (end - sb_off)[:, None]], dim=1)
     w = torch.arange(W, device=planes.device)
     valid = w[None, None, :] < (nxt - woff)[:, :, None]
     dst = (sb_off[:, None, None] + woff[:, :, None] + w[None, None, :]).long()
@@ -115,23 +115,31 @@ def dynwin_place_plain(planes, woff, sb_off, total_rows: int):
     return out
 
 
-def dynwin_place(planes, woff, sb_off, total_rows: int, variant: str = "owner"):
+def _dynwin_launch(planes, woff, sb_off, total_rows: int, variant: str):
+    """The card's branch of dynwin_place: one launch, every output row
+    written by the kernel, total_rows passed as an int (no host-to-device
+    copy, so a call can be captured in a CUDA graph)."""
+    NSB, E, W, _ = planes.shape
+    out = torch.empty((total_rows + E * W, LANES), dtype=_I32,
+                      device=planes.device)
+    kernels.launch("probe_dynwin", planes.data_ptr(), woff.data_ptr(),
+                   sb_off.data_ptr(), out.data_ptr(), NSB, E, W,
+                   int(total_rows), _variant("dynwin", variant),
+                   kernels.stream(planes.device),
+                   count_as=counter("dynwin", variant))
+    return out
+
+
+def dynwin_place(planes, woff, sb_off, total_rows: int,
+                 variant: str = "bulk"):
     """P1 wrapper (replaces the pallas_call of scripts/probe_dynwin.py).
     Same output as dynwin_place_plain."""
-    v = _variant("dynwin", variant)
-    NSB, E, W = _dynwin_check(planes, woff, sb_off)
+    _variant("dynwin", variant)
+    _dynwin_check(planes, woff, sb_off)
     if planes.device.type == "cpu":
         return dynwin_place_plain(planes, woff, sb_off, total_rows)
     _need_cuda(planes, "dynwin_place")
-    tot = _dynwin_tot(sb_off, total_rows)
-    out = torch.empty((total_rows + E * W, LANES), dtype=_I32,
-                      device=planes.device)
-    out[total_rows:].zero_()  # the capacity tail no superblock owns
-    kernels.launch("probe_dynwin", planes.data_ptr(), woff.data_ptr(),
-                   sb_off.data_ptr(), tot.data_ptr(), out.data_ptr(), NSB, E,
-                   W, v, kernels.stream(planes.device),
-                   count_as=counter("dynwin", variant))
-    return out
+    return _dynwin_launch(planes, woff, sb_off, total_rows, variant)
 
 
 # ----------------------------------------------------------------------
@@ -246,7 +254,8 @@ def cases(device, seed: int = 0, production: bool = True):
     where there is one: P2's ``reshape * 2`` forward and ``reshape.clone``
     in reverse (LIBRARY_CALL names it).
     Bytes: each word the function must read, once, and each it must write,
-    once; for P1 the rows this run's data holds, not the capacity. Without
+    once; for P1 the content rows this run's data holds, read and written,
+    and the E*W zero tail rows written, not the planes' capacity. Without
     `production`, the probes' own small shapes only; with it, also P2's
     ragged RELAYOUT_TAIL."""
     rng = np.random.default_rng(seed)
@@ -256,7 +265,7 @@ def cases(device, seed: int = 0, production: bool = True):
         yield ("dynwin", geom, VARIANTS["dynwin"],
                lambda v, a=args: dynwin_place(*a, variant=v),
                lambda a=args: dynwin_place_plain(*a), None,
-               2 * args[3] * LANES * 4)
+               (2 * args[3] + geom[1] * geom[2]) * LANES * 4)
     tail = (RELAYOUT_TAIL,) if production else ()
     for sbc in SHAPES["relayout"][take] + tail:
         x = torch.from_numpy(rng.integers(0, 1 << 30, (sbc, LANES),

@@ -115,7 +115,8 @@ def test_wrappers_refuse_bad_input_and_count_nothing_on_the_cpu():
     findings = P.run_all("cpu", production=False)
     assert kernels.LAUNCHES == before  # no kernel was launched
     assert {(f["probe"], f["variant"]) for f in findings} == {
-        ("dynwin", "or"), ("dynwin", "owner"), ("relayout", "direct"),
+        ("dynwin", "or"), ("dynwin", "owner"), ("dynwin", "run"),
+        ("dynwin", "bulk"), ("relayout", "direct"),
         ("relayout", "cpasync"), ("relayout", "row32"),
         ("relayout", "row33"), ("relayout_rev", "direct"),
         ("relayout_rev", "cpasync"), ("u16", "ballot"),
@@ -179,3 +180,122 @@ def test_relayout_tail_is_ragged(monkeypatch):
                                       "relayout": (8, 8), "u16": (33, 33)})
     tails = [c[1] for c in P.cases("cpu") if c[0].startswith("relayout")]
     assert tails.count(sbc) == 2  # forward and reverse, on the card too
+
+
+# ----------------------------------------------------------------------
+# P1's "run" variant: its schedule emulated in NumPy
+# ----------------------------------------------------------------------
+def _probes_constants():
+    import re
+
+    src = (pathlib.Path(P.__file__).resolve().parent / "csrc"
+           / "probes.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("NT", "U")}
+
+
+_POISON = 0xDEADBEEF  # what torch.empty may leave in a row nobody writes
+
+
+def _emulate_run(planes, woff, sb_off, total, mutation=None):
+    """dynwin_run_kernel's grid (E, NSB + 1) in NumPy: block (j, i) takes
+    plane (i, j)'s run (plane_run: rows woff[i, j] to the next plane's
+    offset, for the last plane to the superblock's end, sb_off[i + 1] or
+    total_rows for the last superblock); block (j, NSB) zeroes tail rows
+    [total + j*W, total + (j+1)*W). Thread t copies int4 t0 + u*NT for
+    t0 = t, t + NT*U, ... and u < U while below the run's count. Returns
+    the output (unwritten int4 hold _POISON) and the writes per int4."""
+    k = _probes_constants()
+    NT, U = k["NT"], k["U"]
+    pl = planes.numpy().view(np.uint32).reshape(-1, 4)  # int4 of the planes
+    wo, so = woff.numpy(), sb_off.numpy()
+    NSB, E, W, _ = planes.shape
+    w4 = W * 32
+    out = np.full(((total + E * W) * 32, 4), _POISON, np.uint32)
+    writes = np.zeros(out.shape[0], np.int64)
+    tid = np.arange(NT)
+    for i in range(NSB + 1):
+        for j in range(E):
+            if i == NSB:
+                first = total + j * W + (mutation == "tail+1")
+                src, dst, n4 = None, first * 32, w4
+            else:
+                o = int(wo[i, j])
+                if j + 1 < E:
+                    end = int(wo[i, j + 1])
+                elif mutation == "no_tot_rule":
+                    end = o + W  # the plane's capacity, not its content
+                else:
+                    end = (int(so[i + 1]) if i + 1 < NSB else total) \
+                        - int(so[i])
+                n = end - o + {"run+1": 1, "run-1": -1}.get(mutation, 0)
+                src, dst, n4 = (i * E + j) * w4, (int(so[i]) + o) * 32, n * 32
+            steps = np.arange(0, max(n4, 1), NT * U)
+            idx = (tid[:, None, None] + steps[None, :, None]
+                   + np.arange(U)[None, None, :] * NT).ravel()
+            idx = idx[idx < n4]
+            if dst + (idx.max(initial=-1)) >= out.shape[0]:
+                raise IndexError("store past the end of the output")
+            out[dst + idx] = 0 if src is None else pl[src + idx]
+            np.add.at(writes, dst + idx, 1)
+    return out.reshape(-1, 128), writes
+
+
+@pytest.mark.parametrize("geom", [(8, 4, 4), (256, 8, 128)])
+def test_dynwin_run_schedule_equals_plain(geom):
+    """The run variant's blocks write every output int4 exactly once, and
+    the result is dynwin_place_plain's, bit for bit, at the probe's shape
+    and the production shape."""
+    planes, woff, sb_off, total = P.dynwin_inputs(*geom, seed=0)
+    got, writes = _emulate_run(planes, woff, sb_off, total)
+    assert (writes == 1).all()
+    want = P.dynwin_place_plain(planes, woff, sb_off, total).numpy()
+    np.testing.assert_array_equal(got, want.view(np.uint32))
+
+
+@pytest.mark.parametrize("mutation",
+                         ["no_tot_rule", "tail+1", "run+1", "run-1"])
+def test_dynwin_run_schedule_catches_mutations(mutation):
+    """Each deliberate fault in the schedule (the last plane copying its
+    whole capacity, the tail shifted a row, every run a row too long or
+    too short) breaks exactly-once coverage or the result."""
+    planes, woff, sb_off, total = P.dynwin_inputs(8, 4, 4, seed=0)
+    want = P.dynwin_place_plain(planes, woff, sb_off, total).numpy()
+    try:
+        got, writes = _emulate_run(planes, woff, sb_off, total, mutation)
+    except IndexError:
+        return  # a store past the end of the output
+    assert not ((writes == 1).all()
+                and np.array_equal(got, want.view(np.uint32)))
+
+
+def test_dynwin_wrapper_is_one_launch_without_host_to_device_copy(
+        monkeypatch):
+    """The card's branch of dynwin_place makes one launch per call and
+    passes total_rows as an int: no tensor is built from host values
+    (torch.tensor) and no torch.diff runs, so the call can be captured in
+    a CUDA graph; every variant takes the same entry point."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch",
+                        lambda name, *a, count_as=None:
+                        calls.append((name, a, count_as)))
+    monkeypatch.setattr(kernels, "stream", lambda dev: 0)
+
+    def refuse(*a, **k):
+        raise AssertionError("a host value became a device tensor")
+
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "diff", refuse)
+    planes, woff, sb_off, total = P.dynwin_inputs(8, 4, 4)
+    for v in P.VARIANTS["dynwin"]:
+        out = P._dynwin_launch(planes, woff, sb_off, total, v)
+        assert tuple(out.shape) == (total + 16, 128)
+    assert [c[0] for c in calls] == ["probe_dynwin"] * 4
+    assert [c[2] for c in calls] == [P.counter("dynwin", v)
+                                     for v in P.VARIANTS["dynwin"]]
+    for _, args, _ in calls:
+        assert all(type(a) is int for a in args)
+        assert args[4:9] == (8, 4, 4, total, args[8])
+    assert [c[1][8] for c in calls] == [0, 1, 2, 3]
+    assert not hasattr(P, "_dynwin_tot")
+    assert P.dynwin_place.__defaults__ == ("bulk",)
