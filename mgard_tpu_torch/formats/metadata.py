@@ -34,6 +34,7 @@ from ..dtypes import (
     operation_type,
     processor_type,
 )
+from ..utils.trace import traced
 
 MAGIC = b"MGARDTPU"
 SOFTWARE_VERSION = (0, 2, 0)
@@ -117,6 +118,7 @@ class Metadata:
     # everything they understand, despite the minor forward-gate below.
     wire_minor: int = 0
 
+    @traced("api.metadata")
     def serialize(self) -> bytes:
         body = bytearray()
         # a demoted stream decodes to the wrong dtype on pre-2.2 readers
@@ -179,6 +181,7 @@ class Metadata:
         return header + bytes(body)
 
     @classmethod
+    @traced("api.metadata")
     def deserialize(cls, data: bytes) -> tuple["Metadata", int]:
         """Parse header; returns (metadata, total header size in bytes)."""
         if len(data) < len(MAGIC) + 8 or data[: len(MAGIC)] != MAGIC:

@@ -59,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import struct
+import time
 import zlib
 from typing import Optional, Sequence, Tuple
 
@@ -94,7 +95,8 @@ from .ops.refactor import (
     recompose_single,
 )
 from .utils.bytesink import join, parts_size
-from .utils.log import Timer, log
+from .utils.log import log
+from .utils.trace import count, span, to_device, to_host, traced
 
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
@@ -313,25 +315,30 @@ def _front_input(v, padded):
     return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
+@traced("kernel.front")
 def _compress_core_hybrid_v2(v, q: float, padded, nl: int, rem_hier, C: int):
     """One-pass front end: (payload int16 [u16 grouped zigzag cf codes],
     cw (NC,) int32 [true chunk widths], rem_sym (n_rem,) int32)."""
     v = _front_input(v, padded)
     inv_q = _inv_q(q)
     pay, cw, rem = Hy.local_transform_fused_v2(v, inv_q, nl, C)
-    rem_dec = decompose(rem, rem_hier, orthogonal=False)
+    with span("kernel.remainder"):
+        rem_dec = decompose(rem, rem_hier, orthogonal=False)
     return pay, cw, Hy.quantize(rem_dec, inv_q).reshape(-1)
 
 
+@traced("kernel.front")
 def _decompress_core_hybrid_v2(zz_rows, rem_sym, q: float, shape, padded,
                                nl: int, rem_hier):
     q = _f32(q)
     rem_dec = (rem_sym.to(torch.float32) * q).reshape(rem_hier.shape)
-    rem = recompose(rem_dec, rem_hier, orthogonal=False).contiguous()
+    with span("kernel.remainder"):
+        rem = recompose(rem_dec, rem_hier, orthogonal=False).contiguous()
     out = Hy.local_inverse_fused_v2(zz_rows.reshape(padded), rem, q, nl)
     return out[tuple(slice(0, s) for s in shape)]
 
 
+@traced("kernel.front")
 def _compress_core_hybrid_v3(v, q: float, padded, nl: int, rem_hier, K: int,
                              E: int):
     """Fused front end: (base, resid [static-cap layout], cw (NSB, 1024)
@@ -339,19 +346,23 @@ def _compress_core_hybrid_v3(v, q: float, padded, nl: int, rem_hier, K: int,
     v = _front_input(v, padded)
     inv_q = _inv_q(q)
     base, resid, cw, rem = Hy.local_transform_pack_v3(v, inv_q, nl, K, E)
-    rem_dec = decompose(rem, rem_hier, orthogonal=False)
+    with span("kernel.remainder"):
+        rem_dec = decompose(rem, rem_hier, orthogonal=False)
     return base, resid, cw, Hy.quantize(rem_dec, inv_q).reshape(-1)
 
 
+@traced("kernel.front")
 def _decompress_core_hybrid_v3(base, crl, resid, rem_sym, q: float, shape,
                                padded, nl: int, rem_hier, K: int, E: int):
     q = _f32(q)
     rem_dec = (rem_sym.to(torch.float32) * q).reshape(rem_hier.shape)
-    rem = recompose(rem_dec, rem_hier, orthogonal=False).contiguous()
+    with span("kernel.remainder"):
+        rem = recompose(rem_dec, rem_hier, orthogonal=False).contiguous()
     out = Hy.unpack_inverse_v3(base, crl, resid, rem, q, nl, K, E, padded)
     return out[tuple(slice(0, s) for s in shape)]
 
 
+@traced("kernel.front")
 def _compress_core_hybrid(v, q: float, padded, nl: int, rem_hier,
                           zgroup: bool):
     """Flag-0 symbols: the cf field (z-class grouped when zgroup) followed
@@ -364,13 +375,15 @@ def _compress_core_hybrid(v, q: float, padded, nl: int, rem_hier,
              if v.ndim in (2, 3) and v.dtype == torch.float32
              else Hy.local_transform)
     cf_sym, rem = front(v, inv_q, nl)
-    rem_dec = decompose(rem, rem_hier, orthogonal=False)
+    with span("kernel.remainder"):
+        rem_dec = decompose(rem, rem_hier, orthogonal=False)
     if zgroup:
         cf_sym = Hy.zclass_group(cf_sym)
     return torch.cat([cf_sym.reshape(-1),
                       Hy.quantize(rem_dec, inv_q).reshape(-1)])
 
 
+@traced("kernel.front")
 def _decompress_core_hybrid(sym, q: float, shape, padded, nl: int, rem_hier,
                             zgroup: bool):
     """Inverse of _compress_core_hybrid in the remainder hierarchy's type:
@@ -381,7 +394,8 @@ def _decompress_core_hybrid(sym, q: float, shape, padded, nl: int, rem_hier,
     work = _TORCH_DTYPE[np.dtype(rem_hier.dtype)]
     q = _in_type(q, rem_hier.dtype)
     rem_dec = (sym[n_cf:].to(work) * q).reshape(rem_hier.shape)
-    rem = recompose(rem_dec, rem_hier, orthogonal=False)
+    with span("kernel.remainder"):
+        rem = recompose(rem_dec, rem_hier, orthogonal=False)
     cf_sym = sym[:n_cf].reshape(padded)
     if zgroup:
         cf_sym = Hy.zclass_ungroup(cf_sym)
@@ -407,6 +421,7 @@ _Z0 = zlib.compress(b"", 3)
 _EMPTY_OUTLIERS = struct.pack("<QQQ", 0, len(_Z0), len(_Z0)) + _Z0 + _Z0
 
 
+@traced("codec.lossless")
 def _raw_encode_device(sym, config: Config):
     """Returns (effective lossless id, the codec's device state)."""
     lt = _effective_raw_lt(config.lossless, int(sym.shape[0]))
@@ -460,6 +475,7 @@ def _dispatch_subdomain(v, hier, config: Config, abs_tol: float, s: float,
 
 
 def _flag0_parts(lt_eff, dev_state) -> list:
+    count("hybrid.flag.0")
     return ([_EMPTY_OUTLIERS + struct.pack("<B", 0)]
             + _raw_section_parts(lt_eff, dev_state))
 
@@ -475,26 +491,32 @@ def _serialize_hybrid_v2(st, config: Config) -> list:
     n_cf = int(np.prod(padded))
     K_cfg = int(getattr(config, "bfp_base_planes", 0) or 0)
     key = ("v2", n_cf, E, C, K_cfg)
-    cw_h = cw.cpu().numpy()
+    cw_h = to_host(cw)
     if K_cfg:
         # an explicit base-plane count wins; an undersized one takes the
         # flag-0 path through the cw_max check below
         K = K_cfg
     elif key in _bfp._K_CACHE:
         K = _bfp._K_CACHE[key][0]
+        count("bfp.k_cache.hit")
     else:
-        hist = np.bincount(np.clip(cw_h, 0, 32), minlength=33)
-        K = _bfp.choose_K(hist, E, C)
+        with span("codec.choose_K"):
+            hist = np.bincount(np.clip(cw_h, 0, 32), minlength=33)
+            K = _bfp.choose_K(hist, E, C)
         _bfp._K_CACHE[key] = (K, None)
+        count("bfp.k_cache.miss")
     cw_max = int(cw_h.max())
     if not K_cfg and K + E < cw_max <= 16:
         # a stale sticky K (chosen for a coarser tolerance on this shape):
         # re-choose from these widths, clamped into [cw_max - E, 16 - E] so
         # the stream stays exception-free and inside the u16 budget
-        hist = np.bincount(np.clip(cw_h, 0, 32), minlength=33)
-        K = min(max(_bfp.choose_K(hist, E, C), cw_max - E), 16 - E)
+        with span("codec.choose_K"):
+            hist = np.bincount(np.clip(cw_h, 0, 32), minlength=33)
+            K = min(max(_bfp.choose_K(hist, E, C), cw_max - E), 16 - E)
         _bfp._K_CACHE[key] = (K, None)
+        count("bfp.k_cache.rechoose")
     if K + E > 16 or cw_max > K + E:
+        count("hybrid.fallback.to_flag0")
         sym = _compress_core_hybrid(v, q, padded, nl, rem_hier,
                                     bool(config.hybrid_level_grouping))
         return _flag0_parts(*_raw_encode_device(sym, config))
@@ -502,6 +524,7 @@ def _serialize_hybrid_v2(st, config: Config) -> list:
     sb = _v2_sb(config, n_cf, C)
     out = _bfp.encode_core_zz(pay.reshape(-1, C * 32), crl, K, E, sb, C)
     cf_parts = _bfp.serialize_prepared_parts(n_cf, K, E, sb, C, crl, *out)
+    count("hybrid.flag.1")
     return ([_EMPTY_OUTLIERS + struct.pack("<B", 1)
              + struct.pack("<Q", parts_size(cf_parts))]
             + cf_parts + _raw_section_parts(*rem_state))
@@ -517,14 +540,16 @@ def _serialize_hybrid_v3(st, config: Config) -> list:
     the next stream fuses again, and keeps flag 1 or drops to flag 0 on a
     true u16 overflow; elsewhere the stream is flag 0."""
     (base, resid, cw, rem_state, v, q, padded, nl, rem_hier, K, E) = st
-    if int(cw.max()) > K + E:
+    if int(to_host(cw.max())) > K + E:
         if _hybrid_v2_ok(padded, rem_hier.dtype, config):
+            count("hybrid.fallback.v3_to_v2")
             C2 = _pick_v2_chunk(padded, config)
             pay, cw2, _ = _compress_core_hybrid_v2(v, q, padded, nl,
                                                    rem_hier, C2)
             # the remainder was encoded for this same quantizer already
             return _serialize_hybrid_v2(
                 (pay, cw2, rem_state, v, q, padded, nl, rem_hier, C2), config)
+        count("hybrid.fallback.to_flag0")
         sym = _compress_core_hybrid(v, q, padded, nl, rem_hier,
                                     bool(config.hybrid_level_grouping))
         return _flag0_parts(*_raw_encode_device(sym, config))
@@ -533,6 +558,7 @@ def _serialize_hybrid_v3(st, config: Config) -> list:
     crl = (cw.reshape(-1) - K).clamp(0, E)
     cf_parts = _bfp.serialize_prepared_parts(n_cf, K, E, 32 * Z, Z // 32, crl,
                                              base, resid, 0, static_cap=True)
+    count("hybrid.flag.2")
     return ([_EMPTY_OUTLIERS + struct.pack("<B", 2)
              + struct.pack("<Q", parts_size(cf_parts))]
             + cf_parts + _raw_section_parts(*rem_state))
@@ -586,7 +612,7 @@ def as_tensor(data, device=None):
     arr = np.asarray(data)
     if arr.dtype.kind != "f":
         raise TypeError(f"unsupported dtype {arr.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    return to_device(np.ascontiguousarray(arr), dev)
 
 
 def _check_backend(compressor, lossless) -> None:
@@ -640,23 +666,41 @@ def _dstype(coords):
             else data_structure_type.Cartesian_Grid_Non_Uniform)
 
 
+def _nbytes(data) -> int:
+    if isinstance(data, torch.Tensor):
+        return data.numel() * data.element_size()
+    return int(np.asarray(data).nbytes)
+
+
 def compress(data, tol: float, s: float = math.inf,
              mode: error_bound_type = error_bound_type.ABS,
              config: Optional[Config] = None,
              coords: Optional[Sequence[np.ndarray]] = None,
-             device=None, _demote_src=None
-             ) -> Tuple[bytes, compress_status_type]:
+             device=None) -> Tuple[bytes, compress_status_type]:
     """Compress a 1D-5D float32/float64 field under an error bound.
 
     ``data`` is a torch tensor (compressed on its own device) or a NumPy
     array (moved to ``device``, default the CUDA card). ``coords`` gives
     one coordinate array per axis for a non-uniform grid. Returns (blob,
-    status)."""
-    config = config or Config()
+    status). The call is the span ``api.compress``; under the TIME bit of
+    ``Config.log_level`` its host time is logged (the stream is on the
+    host, so the device's work is done)."""
+    t0 = time.perf_counter()
+    with span("api.compress"):
+        blob, status = _compress(data, tol, s, mode, config or Config(),
+                                 coords, device)
+    if status == compress_status_type.Success:
+        secs = time.perf_counter() - t0
+        nbytes = _nbytes(data)
+        log.time(f"compress total: {secs * 1e3:.2f} ms "
+                 f"({nbytes / max(secs, 1e-12) / 1e9:.3f} GB/s)")
+    return blob, status
+
+
+def _compress(data, tol: float, s: float, mode: error_bound_type,
+              config: Config, coords, device, _demote_src=None):
     if config.log_level:
         log.level = max(log.level, int(config.log_level))
-    t_total = Timer()
-    t_total.start()
     try:
         v = as_tensor(data, device)
     except TypeError:
@@ -676,9 +720,9 @@ def compress(data, tol: float, s: float = math.inf,
                 and bool(config.f64_demote)):
             rtol = _demotion_tolerance(v, tol, mode, config)
             if rtol is not None:
-                return compress(v.to(torch.float32), rtol, s,
-                                error_bound_type.ABS, config, coords,
-                                _demote_src=dt)
+                return _compress(v.to(torch.float32), rtol, s,
+                                 error_bound_type.ABS, config, coords,
+                                 None, _demote_src=dt)
             # budget too tight for demotion: native float64 transform below
 
         if (config.decomposition == decomposition_type.Hybrid
@@ -789,8 +833,6 @@ def compress(data, tol: float, s: float = math.inf,
         )
         blob = join([meta.serialize()] + payload)
         nbytes = int(np.prod(shape)) * v.element_size()
-        t_total.end()
-        t_total.print("compress total", nbytes)
         log.info(f"compressed {nbytes} -> {len(blob)} bytes over "
                  f"{S} subdomain(s)")
         return blob, compress_status_type.Success
@@ -906,7 +948,20 @@ def decompress(blob: bytes, config: Optional[Config] = None,
     reads the streams the reference libraries write (MGARD-X and the CPU
     generation; ``formats/ref_stream.py``), as the reference's own
     sniffing dispatch does (compress_internal.cpp:5-13). A zstd section on
-    a host without the zstandard package gives BackendNotAvailableFailure."""
+    a host without the zstandard package gives BackendNotAvailableFailure.
+    The call is the span ``api.decompress``; under the TIME bit of
+    ``Config.log_level`` its host time is logged, which ends when the
+    decode is enqueued: the device may still be running it."""
+    t0 = time.perf_counter()
+    with span("api.decompress"):
+        out, status = _decompress(blob, config, device)
+    if status == compress_status_type.Success:
+        log.time(f"decompress total: {(time.perf_counter() - t0) * 1e3:.2f}"
+                 " ms to enqueue (the device may still run)")
+    return out, status
+
+
+def _decompress(blob: bytes, config: Optional[Config], device):
     device = resolve_device(device)
     if ref_stream.sniff(bytes(blob[:8])):
         try:
@@ -923,8 +978,6 @@ def decompress(blob: bytes, config: Optional[Config] = None,
         meta, off = Metadata.deserialize(blob)
     except (FormatError, struct.error):
         return None, compress_status_type.Failure
-    t_total = Timer()
-    t_total.start()
     try:
         cfg = dataclasses.replace(config) if config is not None else Config()
         if cfg.log_level:
@@ -957,8 +1010,6 @@ def decompress(blob: bytes, config: Optional[Config] = None,
             out = out[tuple(slice(0, n) for n in shape)]
         if meta.demoted:
             out = out.to(_TORCH_DTYPE[np.dtype(dtype)])
-        t_total.end()
-        t_total.print("decompress total", out.numel() * out.element_size())
         return out, compress_status_type.Success
     except NotImplementedError:
         raise
@@ -1018,7 +1069,7 @@ def compress_roi(data, tol: float, roi_mask=None, roi_factor: float = 16.0,
             mask = detect_roi(v, hier, **(roi_detect or {}))
         else:
             if isinstance(roi_mask, torch.Tensor):
-                roi_mask = roi_mask.cpu().numpy()
+                roi_mask = to_host(roi_mask)
             mask = np.asarray(roi_mask).astype(bool)
         if mask.shape != shape:
             raise ValueError("roi_mask shape must match data shape")

@@ -10,7 +10,9 @@ changed source builds anew and an unchanged one is reused.
 Each C entry point launches its kernel (for K2/K3 a short chain of
 kernels; for a probe the variant it is asked for) on the stream
 it is given and returns ``cudaGetLastError()``; ``launch`` raises on a
-nonzero code and only then counts the launch in ``LAUNCHES``.
+nonzero code and only then counts the launch in ``LAUNCHES`` (the ``launch``
+group of ``utils/trace.py``'s counters). The build and the load are the
+spans ``kernel.build`` / ``kernel.load``, counted with their nanoseconds.
 Nothing here runs on import, and nothing falls back: a CUDA tensor either
 reaches its kernel or raises.
 """
@@ -22,7 +24,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from .utils import trace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
@@ -76,8 +81,11 @@ _PROBE_COUNTERS = (
     "probe_relayout_cpasync", "probe_relayout_row32", "probe_relayout_row33",
     "probe_u16_ballot", "probe_u16_butterfly")
 
-# Launch counts per kernel, bumped only where a kernel was launched.
-LAUNCHES = {name: 0 for name in _SIGNATURES if not name.startswith("probe_")}
+# Launch counts per kernel, bumped only where a kernel was launched: the
+# "launch" group of the counter registry.
+LAUNCHES = trace.group("launch")
+LAUNCHES.update({name: 0 for name in _SIGNATURES
+                 if not name.startswith("probe_")})
 LAUNCHES.update({name: 0 for name in _PROBE_COUNTERS})
 # nvcc's output of the last build (register and shared-memory use).
 BUILD_LOG = ""
@@ -120,10 +128,19 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it exists: one nvcc
     per source, run in parallel, then one link."""
-    global BUILD_LOG
     out = library_path()
     if out.exists():
         return out
+    t0 = time.perf_counter_ns()
+    with trace.span("kernel.build"):
+        _build(out)
+    trace.count("kernel.build")
+    trace.count("kernel.build_ns", time.perf_counter_ns() - t0)
+    return out
+
+
+def _build(out: Path) -> None:
+    global BUILD_LOG
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
@@ -151,25 +168,34 @@ def build() -> Path:
     finally:
         for path in objs + logs + [tmp]:
             path.unlink(missing_ok=True)
-    return out
 
 
 def lib():
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(L, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        L.mgard_cuda_error_string.argtypes = [ctypes.c_int]
-        L.mgard_cuda_error_string.restype = ctypes.c_char_p
-        # Z, int[2] out: a query, not a launch
-        L.hybrid_v3_max_clusters.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        L.hybrid_v3_max_clusters.restype = ctypes.c_int
+        path = build()
+        t0 = time.perf_counter_ns()
+        with trace.span("kernel.load"):
+            L = _load(path)
+        trace.count("kernel.load")
+        trace.count("kernel.load_ns", time.perf_counter_ns() - t0)
         _lib = L
     return _lib
+
+
+def _load(path: Path):
+    L = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(L, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    L.mgard_cuda_error_string.argtypes = [ctypes.c_int]
+    L.mgard_cuda_error_string.restype = ctypes.c_char_p
+    # Z, int[2] out: a query, not a launch
+    L.hybrid_v3_max_clusters.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    L.hybrid_v3_max_clusters.restype = ctypes.c_int
+    return L
 
 
 def check_tensor(name, t, dtype, shape, device) -> None:

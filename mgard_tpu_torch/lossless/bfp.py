@@ -31,6 +31,7 @@ import torch
 from .. import kernels
 from ..ops.compact import masked_indices
 from ..ops.hybrid import bit_length
+from ..utils.trace import count, span, to_device, to_host, traced
 from .bfx import BS, _bit_transpose32, _unzigzag, _zigzag
 from .huffman import device_get_prefix
 
@@ -105,6 +106,7 @@ def _static_plan(NSB: int, E: int, sb: int, C: int, device):
     return rband, woff, sb_off
 
 
+@traced("codec.bfp_plan")
 def _zz_plan(crl, E: int, sb: int, C: int, static_cap: bool):
     """Sort plan and band offsets of a prepared-payload stream: (rank, cnt,
     rband, woff, sb_off, resid_rows, alloc_rows)."""
@@ -322,6 +324,7 @@ def decode_bands(base, resid2d, rank, woff, rband, sb_off, cnt_c, K: int,
 # ----------------------------------------------------------------------
 # Device cores
 # ----------------------------------------------------------------------
+@traced("kernel.bfp_encode")
 def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
                 C: int = CHUNK):
     """sym_padded (N,) int32, N % (sb*32) == 0.
@@ -348,22 +351,25 @@ def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
     zz_rows = torch.where(mask[:, None], 0, zz_rows)
     # narrow payload: with K+E <= 16 every surviving code fits 16 bits
     payload = zz_rows.to(torch.int16) if (K + E) <= 16 else zz_rows
-    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
-    rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
+    with span("codec.bfp_plan"):
+        rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
+        rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
     alloc_rows = (NSB + 1) * E * (sb // LANES)
     base, resid2d = encode_bands(payload.contiguous(), rank_c, woff, rband,
                                  sb_off, K, E, sb, C, alloc_rows)
     return base, crl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count
 
 
+@traced("kernel.bfp_decode")
 def decode_core(base4d, crl, resid2d, exc_ids, exc_blocks, K: int, E: int,
                 sb: int, NB: int, C: int = CHUNK):
     """Inverse of encode_core -> (NB*32,) int32 symbols."""
     NC = NB // C
     NSB = NB // sb
     sbc = sb // C
-    rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
-    rband, woff, sb_off, _ = _plan_offsets(cnt_c, C)
+    with span("codec.bfp_plan"):
+        rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
+        rband, woff, sb_off, _ = _plan_offsets(cnt_c, C)
     narrow = (K + E) <= 16
     rows = decode_bands(base4d, resid2d, rank_c, woff, rband, sb_off, cnt_c,
                         K, E, sb, C, wide=not narrow)
@@ -374,6 +380,7 @@ def decode_core(base4d, crl, resid2d, exc_ids, exc_blocks, K: int, E: int,
     return sym_rows.reshape(NB * BS)
 
 
+@traced("kernel.bfp_encode")
 def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int, C: int,
                    static_cap: bool = False):
     """Prepared-payload encode (hybrid v2 cf stream): payload_rows (NC, 32C)
@@ -388,6 +395,7 @@ def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int, C: int,
     return base, resid2d, resid_rows
 
 
+@traced("kernel.bfp_decode")
 def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int, NB: int,
                    C: int, static_cap: bool = False):
     """Inverse of encode_core_zz -> (NC, 32C) int16 u16 zigzag rows in
@@ -447,6 +455,7 @@ def _compact_sb(out: np.ndarray, resid_flat: np.ndarray, cnt, rband,
     return o
 
 
+@traced("codec.bfp_blob")
 def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
                 resid2d, resid_rows, exc_cnt: int,
                 static_cap: bool = False) -> list:
@@ -456,13 +465,15 @@ def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
     the host: every superblock's slot holds valid words."""
     from ..utils.bytesink import Fill
 
-    rows_i = resid2d.shape[0] if static_cap else int(resid_rows)
-    crl_h = crl.cpu().numpy()
+    rows_i = (resid2d.shape[0] if static_cap
+              else int(to_host(resid_rows)) if torch.is_tensor(resid_rows)
+              else int(resid_rows))
+    crl_h = to_host(crl)
     rl_h = crl_h.astype(np.uint8)
     if rl_h.shape[0] % 2:
         rl_h = np.concatenate([rl_h, np.zeros(1, np.uint8)])
     nib = rl_h[0::2] | (rl_h[1::2] << 4)
-    base_h = (base[:, :K].contiguous().cpu().numpy().view("<u4") if K
+    base_h = (to_host(base[:, :K].contiguous()).view("<u4") if K
               else np.zeros(0, "<u4"))
     resid_flat = device_get_prefix(resid2d.reshape(-1),
                                    rows_i * LANES).view("<u4")
@@ -487,6 +498,7 @@ def serialize_prepared_parts(n: int, K: int, E: int, sb: int, C: int, crl,
                        static_cap)
 
 
+@traced("codec.bfp_expand")
 def _expand_resid(compact: np.ndarray, crl_h: np.ndarray, E: int, C: int,
                   sb: int, static_cap: bool = False) -> np.ndarray:
     """Inverse of the wire compaction -> (rows + CAP, 128) uint32, or the
@@ -513,6 +525,7 @@ def _expand_resid(compact: np.ndarray, crl_h: np.ndarray, E: int, C: int,
     return buf.reshape(-1, LANES)
 
 
+@traced("codec.bfp_parse")
 def _parse(data: bytes, offset: int):
     """Header, sidecar and base planes of a BFP5 blob (host arrays)."""
     magic, n, resid_words, K, E, sb, C, cnt = struct.unpack_from(
@@ -547,7 +560,7 @@ def _parse(data: bytes, offset: int):
 
 
 def _to_dev(a: np.ndarray, device):
-    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+    return to_device(np.ascontiguousarray(a).view(np.int32), device)
 
 
 def deserialize_prepared(data: bytes, offset: int = 0, device="cpu",
@@ -597,7 +610,7 @@ def choose_K(hist_cw: np.ndarray, E: int, C: int = CHUNK) -> int:
 def _width_hist(sym, C: int = CHUNK) -> np.ndarray:
     """Chunk-max width histogram (33,)."""
     cw = _chunk_widths(_zigzag(sym.reshape(-1, C * BS)))
-    return torch.bincount(cw, minlength=33).cpu().numpy()
+    return to_host(torch.bincount(cw, minlength=33))
 
 
 def _choose_sb(n: int, device) -> int:
@@ -650,11 +663,14 @@ def encode_device(symbols, config=None):
     if not K:
         if key in _K_CACHE:
             K = _K_CACHE[key][0]
+            count("bfp.k_cache.hit")
         else:
-            hcw = _width_hist(sym, C)
-            K = choose_K(hcw, E, C)
+            with span("codec.choose_K"):
+                hcw = _width_hist(sym, C)
+                K = choose_K(hcw, E, C)
             _K_CACHE[key] = (K, _exc_bucket(int(hcw[K + E + 1 :].sum()),
                                             NB // C))
+            count("bfp.k_cache.miss")
     exc_cap = _K_CACHE.get(key, (K, max(256, (NB // C) >> 8)))[1]
     out = encode_core(sym, K, E, sb, exc_cap, C)
     return ("bfp", n, K, E, sb, exc_cap, sym, out, C)
@@ -666,7 +682,7 @@ def serialize_device_parts(state) -> list:
                             0)]
     _, n, K, E, sb, exc_cap, sym, out, C = state
     base, rl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count = out
-    cnt = int(exc_count)
+    cnt = int(to_host(exc_count))
     NB = _pad_to(n, sb) // BS
     if cnt > exc_cap:
         # re-run once at the exact count's bucket
@@ -674,7 +690,7 @@ def serialize_device_parts(state) -> list:
         _K_CACHE[(_pad_to(n, sb), E, C)] = (K, exc_cap)
         out = encode_core(sym, K, E, sb, exc_cap, C)
         base, rl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count = out
-        cnt = int(exc_count)
+        cnt = int(to_host(exc_count))
     ids_h = device_get_prefix(exc_ids, cnt).astype("<u4")
     blk_h = device_get_prefix(exc_blocks, cnt).astype("<i4")
     return (_blob_parts(n, K, E, sb, C, rl, base, resid2d, resid_rows, cnt)
@@ -706,6 +722,6 @@ def decode(data: bytes, offset: int = 0, device="cpu"):
     rbuf = _expand_resid(resid, rl, E, C, sb)
     sym = decode_core(
         _to_dev(base, device), _to_dev(rl, device), _to_dev(rbuf, device),
-        torch.from_numpy(ids).to(device),
-        torch.from_numpy(blocks.copy()).to(device), K, E, sb, NB, C)
+        to_device(ids, device), to_device(blocks.copy(), device), K, E, sb,
+        NB, C)
     return sym[:n], p - offset

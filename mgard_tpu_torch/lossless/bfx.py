@@ -41,6 +41,7 @@ import torch
 from .. import kernels
 from ..ops.hybrid import bit_length
 from ..utils.bytesink import Fill, join
+from ..utils.trace import count, span, to_device, to_host
 
 BS = 32  # symbols per block
 SB_BLOCKS = 4096  # blocks per superblock on the kernel path (CUDA)
@@ -319,13 +320,20 @@ def serialize_device_parts(state) -> list:
     if state[0] == "empty":
         return [struct.pack(_HDR, _MAGIC, 0, 0, SB_BLOCKS_SMALL, 0)]
     _, n, sb, align, words, widths, total = state
-    total_i = int(total)
+    total_i = int(to_host(total))
     head = struct.pack(_HDR, _MAGIC, n, total_i, sb, align)
 
     def words_into(dst):  # little-endian u32 words as bytes
-        torch.from_numpy(dst).copy_(words[:total_i].view(torch.uint8))
+        src = words[:total_i].view(torch.uint8)
+        if src.device.type == "cpu":
+            torch.from_numpy(dst).copy_(src)
+            return
+        with span("copy.dtoh"):
+            torch.from_numpy(dst).copy_(src)
+        count("copy.dtoh.calls")
+        count("copy.dtoh.bytes", dst.nbytes)
 
-    return [head, widths.cpu().numpy(), Fill(4 * total_i, words_into)]
+    return [head, to_host(widths), Fill(4 * total_i, words_into)]
 
 
 def encode(symbols, config=None) -> bytes:
@@ -362,6 +370,6 @@ def decode(data: bytes, offset: int = 0, device="cpu"):
     if widths.max() > 32 or int(((lens + align - 1) // align * align).sum()) \
             != total:
         raise ValueError("BFX widths disagree with the word count")
-    sym = decode_core(_blob_tensor(words.view(np.int32)).to(device),
-                       _blob_tensor(widths).to(device), sb, align)
+    sym = decode_core(to_device(_blob_tensor(words.view(np.int32)), device),
+                       to_device(_blob_tensor(widths), device), sb, align)
     return sym[:n], p - offset

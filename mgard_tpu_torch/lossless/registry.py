@@ -8,6 +8,7 @@ from __future__ import annotations
 import struct
 
 from ..dtypes import lossless_type
+from ..utils.trace import traced
 from . import bfp, bfx
 
 _HDR = "<BQ"  # backend id, inner payload size
@@ -20,6 +21,7 @@ def section_parts(lt: lossless_type, blob_parts) -> list:
     return [struct.pack(_HDR, int(lt), parts_size(blob_parts))] + blob_parts
 
 
+@traced("codec.lossless")
 def lossless_decompress(data: bytes, offset: int = 0, device="cpu"):
     """Returns (int32 symbols on device, bytes consumed)."""
     bt, inner_size = struct.unpack_from(_HDR, data, offset)

@@ -37,6 +37,7 @@ from ..highlevel import as_tensor, resolve_device
 from ..lossless import bfx as _bfx
 from ..ops.refactor import decompose, recompose
 from ..utils.bytesink import join
+from ..utils.trace import count, span, to_device_each, to_host, traced
 from . import bitplane
 from .components import (
     interleave_level,
@@ -58,6 +59,8 @@ PLANE_BFX = 2
 PLANE_BFX_MIN_WORDS = 8192
 
 _INTERLEAVERS = {"direct": 0, "blocked": 1, "sfc": 2}
+_PLANE_COUNTERS = {PLANE_RAW: "mdr.plane.raw", PLANE_ZLIB: "mdr.plane.zlib",
+                   PLANE_BFX: "mdr.plane.bfx"}
 _TORCH_TYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
@@ -69,24 +72,31 @@ def choose_plane_blob(raw_bytes: bytes, candidate, codec_id: int):
     return raw_bytes, PLANE_RAW
 
 
-def decode_plane_blob(blob: bytes, codec: int, m: int, device="cpu"):
-    """Decode one stored bitplane blob to its (m,) int32 row on ``device``
-    (u32 words as int32 bit patterns): the single decode point of every
-    reader. A BFX plane decodes on ``device`` (kernel K6 on the card)."""
-    if codec == PLANE_BFX:
-        syms, _ = _bfx.decode(blob, 0, device)
-        if int(syms.shape[0]) < m:
-            raise FormatError(f"BFX plane holds {int(syms.shape[0])} words, "
-                              f"expected {m}")
-        return syms[:m]
-    if codec == PLANE_ZLIB:
-        raw = zlib.decompress(blob)
-    elif codec == PLANE_RAW:
-        raw = blob
-    else:
-        raise FormatError(f"unsupported MDR plane codec id {codec}")
-    words = np.frombuffer(raw, "<i4", count=m)
-    return _bfx._blob_tensor(words).to(device)
+def decode_plane_rows(blobs, codecs, m: int, device="cpu"):
+    """Decode a level's stored plane blobs to its (len(blobs), m) int32
+    rows on ``device`` (u32 words as int32 bit patterns): the single decode
+    point of every reader. A BFX plane decodes on ``device`` (kernel K6 on
+    the card); a raw or zlib plane is copied there as it is inflated."""
+    rows, host, words = [None] * len(blobs), [], []
+    for i, (blob, codec) in enumerate(zip(blobs, codecs)):
+        if codec == PLANE_BFX:
+            syms, _ = _bfx.decode(blob, 0, device)
+            if int(syms.shape[0]) < m:
+                raise FormatError(f"BFX plane holds {int(syms.shape[0])} "
+                                  f"words, expected {m}")
+            rows[i] = syms[:m]
+            continue
+        if codec == PLANE_ZLIB:
+            raw = zlib.decompress(blob)
+        elif codec == PLANE_RAW:
+            raw = blob
+        else:
+            raise FormatError(f"unsupported MDR plane codec id {codec}")
+        host.append(i)
+        words.append(_bfx._blob_tensor(np.frombuffer(raw, "<i4", count=m)))
+    for i, t in zip(host, to_device_each(words, device)):
+        rows[i] = t
+    return torch.stack(rows)
 
 
 @dataclasses.dataclass
@@ -248,6 +258,7 @@ def _field_tensor(data, device):
     return v
 
 
+@traced("kernel.mdr_decompose")
 def _refactor_levels(v, hier: Hierarchy, B: int, negabinary: bool,
                      orthogonal: bool, interleaver: int):
     """Device phase of MDRefactor: decompose, then per level interleave,
@@ -261,6 +272,7 @@ def _refactor_levels(v, hier: Hierarchy, B: int, negabinary: bool,
             for l in range(hier.l_target + 1)]
 
 
+@traced("api.mdr_refactor")
 def MDRefactor(data, config: Optional[Config] = None,
                coords: Optional[Sequence[np.ndarray]] = None, device=None):
     """Refactor a float32/float64 field into progressive bitplane
@@ -292,23 +304,28 @@ def MDRefactor(data, config: Optional[Config] = None,
     levels = []
     planes_data: List[List[bytes]] = []
     for l, (planes, exp, err_max, err_sq) in enumerate(results):
-        exp = int(exp)
+        exp = int(to_host(exp))
         err_max, err_sq = bitplane.scale_tables(err_max, err_sq, exp, B,
                                                 negabinary)
-        planes_h = planes.cpu().numpy()  # (B+1 or B, m) u32 bit patterns
+        planes_h = to_host(planes)  # (B+1 or B, m) u32 bit patterns
         sizes, raws, blobs = [], [], []
-        for p in range(planes_h.shape[0]):
-            raw_bytes = planes_h[p].astype("<i4", copy=False).tobytes()
-            cand, cid = None, PLANE_RAW
-            if lvl_codec == "zlib":
-                cand, cid = zlib.compress(raw_bytes, 1), PLANE_ZLIB
-            elif dispatched[l][p] is not None:
-                cand = join(_bfx.serialize_device_parts(dispatched[l][p]))
-                cid = PLANE_BFX
-            best, codec = choose_plane_blob(raw_bytes, cand, cid)
-            blobs.append(best)
-            sizes.append(len(best))
-            raws.append(codec)
+        with span("codec.plane_encode"):
+            for p in range(planes_h.shape[0]):
+                raw_bytes = planes_h[p].astype("<i4", copy=False).tobytes()
+                cand, cid = None, PLANE_RAW
+                if lvl_codec == "zlib":
+                    cand, cid = zlib.compress(raw_bytes, 1), PLANE_ZLIB
+                elif dispatched[l][p] is not None:
+                    cand = join(_bfx.serialize_device_parts(
+                        dispatched[l][p]))
+                    cid = PLANE_BFX
+                best, codec = choose_plane_blob(raw_bytes, cand, cid)
+                blobs.append(best)
+                sizes.append(len(best))
+                raws.append(codec)
+                count(_PLANE_COUNTERS[codec])
+                count("mdr.plane.bytes_in", len(raw_bytes))
+                count("mdr.plane.bytes_out", len(best))
         levels.append(LevelMetadata(exp, level_num_elems(hier, l), sizes,
                                     raws, err_max, err_sq))
         planes_data.append(blobs)
@@ -328,6 +345,7 @@ def MDRefactor(data, config: Optional[Config] = None,
     return meta, RefactoredData(planes=planes_data)
 
 
+@traced("api.mdr_request")
 def MDRequest(meta: RefactoredMetadata, tol: float,
               s: float = float("inf")) -> List[int]:
     """Plan per-level bitplane counts for a target tolerance.
@@ -350,6 +368,7 @@ def retrieve_size(meta: RefactoredMetadata, counts: Sequence[int]) -> int:
     return total
 
 
+@traced("kernel.mdr_recompose")
 def _reconstruct_levels(planes_list, exps, hier: Hierarchy, B: int, counts,
                         negabinary: bool, orthogonal: bool, dtype,
                         interleaver: int, device):
@@ -373,6 +392,7 @@ def _reconstruct_levels(planes_list, exps, hier: Hierarchy, B: int, counts,
     return recompose(dec, hier, orthogonal=orthogonal)
 
 
+@traced("api.mdr_reconstruct")
 def MDReconstruct(meta: RefactoredMetadata, data: RefactoredData,
                   counts: Optional[Sequence[int]] = None,
                   config: Optional[Config] = None,
@@ -395,9 +415,13 @@ def MDReconstruct(meta: RefactoredMetadata, data: RefactoredData,
         # a level with no requested planes contributes nothing (its plane
         # blobs may not even have been retrieved)
         nrows = (sr + b) if b > 0 else 0
-        rows = [decode_plane_blob(data.planes[l][p], int(lm.plane_raw[p]), m,
-                                  dev) for p in range(nrows)]
-        planes_list.append(torch.stack(rows) if rows else None)
+        rows = None
+        if nrows:
+            with span("codec.plane_decode"):
+                rows = decode_plane_rows(
+                    data.planes[l][:nrows],
+                    [int(c) for c in lm.plane_raw[:nrows]], m, dev)
+        planes_list.append(rows)
         exps.append(lm.exp)
     rec = _reconstruct_levels(planes_list, exps, hier, meta.number_bitplanes,
                               counts, sr == 0, bool(meta.orthogonal), dtype,

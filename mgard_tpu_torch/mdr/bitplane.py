@@ -46,6 +46,7 @@ import torch
 
 from .. import kernels
 from ..lossless.bfx import _bit_transpose32
+from ..utils.trace import to_device, to_host
 
 LANES = 32
 
@@ -153,8 +154,8 @@ def scale_tables(err_max_u, err_sq_u, exp: int, B: int,
     """Unit-space error tables -> physical units, on the host in float64
     (the physical values scale with amax^2 * n)."""
     s = np.float64(table_scale(exp, B, negabinary))
-    em = torch.as_tensor(err_max_u).cpu().numpy().astype(np.float64)
-    es = torch.as_tensor(err_sq_u).cpu().numpy().astype(np.float64)
+    em = to_host(torch.as_tensor(err_max_u)).astype(np.float64)
+    es = to_host(torch.as_tensor(err_sq_u)).astype(np.float64)
     return em * s, es * s * s
 
 
@@ -321,7 +322,9 @@ def _pow2_scale_f32(x, e):
 
 
 def _exp_tensor(exp, device):
-    return torch.as_tensor(exp, dtype=_I32, device=device)
+    if torch.is_tensor(exp):
+        return exp.to(device=device, dtype=_I32)
+    return to_device(torch.tensor(exp, dtype=_I32), device)
 
 
 def decode_kernel(planes, exp, B: int, b: int, out_dtype=_F64):

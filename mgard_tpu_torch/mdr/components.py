@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..hierarchy import Hierarchy
+from ..utils.trace import traced
 
 
 def level_regions(hier: Hierarchy, l: int) -> List[Tuple[slice, ...]]:
@@ -212,6 +213,7 @@ def best_step(lm, b: int, B: int, sign_rows: int, inf_norm: bool):
     return best_gain, best_k
 
 
+@traced("codec.plan")
 def interpret_retrieve_size(meta, tol: float, s: float) -> List[int]:
     """Greedy (error reduction / byte) plane selection: per-level magnitude
     plane counts whose estimated global error is <= tol (or every plane).

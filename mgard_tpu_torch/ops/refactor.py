@@ -11,7 +11,10 @@ the same linear map:
   0/1 reorder matrix per axis, and for the orthogonal basis one (nc x nf)
   correction matrix per axis, each a ``torch.tensordot`` in the field's
   type (the JAX package ran the same operators as XLA matmuls outside any
-  Pallas kernel, for float32 only; the port serves both types this way);
+  Pallas kernel, for float32 only; the port serves both types this way).
+  The host builds the matrices once per hierarchy; a transform on a card
+  copies every matrix it applies up before its first level
+  (``_device_ops``);
 - the split/lerp/merge "slice" path (``decompose_level`` /
   ``recompose_level``) for longer axes (1D signals, anisotropic grids),
   where a dense operator would be an O(n^2) matrix: per-axis slices,
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..hierarchy import Hierarchy
+from ..utils.trace import to_device_each
 from . import _be
 from .axis import (
     mass_restrict_axis,
@@ -142,20 +146,58 @@ def _corr_matrix(hier: Hierarchy, l: int, d: int) -> np.ndarray:
     return _cached(hier, "_corr_mats", (l, d), build)
 
 
-def _correction_mm(resid, hier: Hierarchy, l: int):
+def _scatter_matrix(hier: Hierarchy, l: int, d: int) -> np.ndarray:
+    """(nf x nc) left block of the inverse reorder: the coarse values to
+    their physical (even) positions."""
+    def build():
+        nc = hier.axis[l - 1][d].n_coarse
+        return np.ascontiguousarray(
+            _reorder_matrix(hier, l, d, inverse=True)[:, :nc])
+
+    return _cached(hier, "_scatter_mats", (l, d), build)
+
+
+def _level_ops(hier: Hierarchy, l: int, orthogonal: bool, inverse: bool):
+    """(name, host matrix) of every operator one level step applies."""
+    ops = []
+    for d in range(hier.D):
+        ops.append((("interp", d), _interp_matrix(hier, l, d)))
+        ops.append((("reorder", d), _reorder_matrix(hier, l, d, inverse)))
+        if inverse:
+            ops.append((("scatter", d), _scatter_matrix(hier, l, d)))
+        if orthogonal:
+            ops.append((("corr", d), _corr_matrix(hier, l, d)))
+    return ops
+
+
+def _device_ops(hier: Hierarchy, levels, orthogonal: bool, inverse: bool,
+                device) -> dict:
+    """{level: {(name, axis): matrix}} of a transform over ``levels`` on
+    ``device``, every matrix copied up before the first level runs (on the
+    CPU, tensors over the host matrices' memory)."""
+    items = [(l, k, A) for l in levels
+             for k, A in _level_ops(hier, l, orthogonal, inverse)]
+    ops = {l: {} for l in levels}
+    for (l, k, _), t in zip(items, to_device_each([A for *_, A in items],
+                                                   device)):
+        ops[l][k] = t
+    return ops
+
+
+def _correction_mm(resid, ops: dict, D: int):
     """L2 projection of the residual onto the coarse grid: one dense
     correction matmul per axis."""
     corr = resid
-    for d in range(hier.D):
-        corr = _apply_axis0_mm(_corr_matrix(hier, l, d), corr)
+    for d in range(D):
+        corr = _apply_axis0_mm(ops[("corr", d)], corr)
     return corr
 
 
-def _apply_axis0_mm(A: np.ndarray, x):
-    """y = A @ x along axis 0, result axis rotated to the end: composing D
-    of these cycles back to the original axis order."""
-    At = torch.as_tensor(A, device=x.device)
-    return _rot(torch.tensordot(At, x, dims=([1], [0])))
+def _apply_axis0_mm(A, x):
+    """y = A @ x along axis 0 (A a tensor on x's device), result axis
+    rotated to the end: composing D of these cycles back to the original
+    axis order."""
+    return _rot(torch.tensordot(A, x, dims=([1], [0])))
 
 
 _TYPES = {torch.float32: np.float32, torch.float64: np.float64}
@@ -167,45 +209,43 @@ def _check(v, hier: Hierarchy):
                         "the transform takes float32 or float64, matching")
 
 
-def decompose_level_fast(v, hier: Hierarchy, l: int,
-                         orthogonal: bool = False):
+def decompose_level_fast(v, hier: Hierarchy, l: int, orthogonal: bool,
+                         ops: dict):
+    """One level by dense operators; ``ops`` are the level's matrices on
+    v's device (``_device_ops``)."""
     D = hier.D
     interp = v
     for d in range(D):
-        interp = _apply_axis0_mm(_interp_matrix(hier, l, d), interp)
+        interp = _apply_axis0_mm(ops[("interp", d)], interp)
     resid = v - interp
     coarse = v
     for d, al in enumerate(hier.axis[l - 1]):
         coarse, _ = split_axis(coarse, d, al.n_fine)
     if orthogonal:
-        coarse = coarse + _correction_mm(resid, hier, l)
+        coarse = coarse + _correction_mm(resid, ops, D)
     reo = resid
     for d in range(D):
-        reo = _apply_axis0_mm(_reorder_matrix(hier, l, d), reo)
+        reo = _apply_axis0_mm(ops[("reorder", d)], reo)
     return _be.update_box(reo, coarse, D)
 
 
-def recompose_level_fast(reo, hier: Hierarchy, l: int,
-                         orthogonal: bool = False):
-    axes = hier.axis[l - 1]
+def recompose_level_fast(reo, hier: Hierarchy, l: int, orthogonal: bool,
+                         ops: dict):
     D = hier.D
     coarse_shape = hier.level_shape[l - 1]
     coarse_box = _box(reo, coarse_shape)
     resid = _be.update_box(reo, _be.zeros(coarse_shape, reo.dtype, reo), D)
     for d in range(D):
-        resid = _apply_axis0_mm(_reorder_matrix(hier, l, d, inverse=True),
-                                resid)
+        resid = _apply_axis0_mm(ops[("reorder", d)], resid)
     if orthogonal:
-        coarse_box = coarse_box - _correction_mm(resid, hier, l)
-    # scatter the coarse values to their physical (even) positions: the
-    # (nf x nc) left block of the inverse reorder permutation
+        coarse_box = coarse_box - _correction_mm(resid, ops, D)
+    # scatter the coarse values to their physical (even) positions
     field = coarse_box
     for d in range(D):
-        E = _reorder_matrix(hier, l, d, inverse=True)[:, : axes[d].n_coarse]
-        field = _apply_axis0_mm(np.ascontiguousarray(E), field)
+        field = _apply_axis0_mm(ops[("scatter", d)], field)
     interp = field
     for d in range(D):
-        interp = _apply_axis0_mm(_interp_matrix(hier, l, d), interp)
+        interp = _apply_axis0_mm(ops[("interp", d)], interp)
     return interp + resid
 
 
@@ -325,18 +365,31 @@ def _levels(v, hier: Hierarchy, levels, step, orthogonal: bool):
     return v
 
 
+def _fast_step(step, ops):
+    return lambda v, hier, l, orthogonal: step(v, hier, l, orthogonal,
+                                               ops[l])
+
+
 def decompose(v, hier: Hierarchy, orthogonal: bool = False):
     """Full multilevel decomposition, finest to coarsest, nested-box output."""
     _check(v, hier)
-    step = decompose_level_fast if _use_fast(hier) else decompose_level
-    return _levels(v, hier, range(hier.l_target, 0, -1), step, orthogonal)
+    levels = range(hier.l_target, 0, -1)
+    if not _use_fast(hier):
+        return _levels(v, hier, levels, decompose_level, orthogonal)
+    ops = _device_ops(hier, levels, orthogonal, False, v.device)
+    return _levels(v, hier, levels, _fast_step(decompose_level_fast, ops),
+                   orthogonal)
 
 
 def recompose(v, hier: Hierarchy, orthogonal: bool = False):
     """Full multilevel recomposition, coarsest to finest."""
     _check(v, hier)
-    step = recompose_level_fast if _use_fast(hier) else recompose_level
-    return _levels(v, hier, range(1, hier.l_target + 1), step, orthogonal)
+    levels = range(1, hier.l_target + 1)
+    if not _use_fast(hier):
+        return _levels(v, hier, levels, recompose_level, orthogonal)
+    ops = _device_ops(hier, levels, orthogonal, True, v.device)
+    return _levels(v, hier, levels, _fast_step(recompose_level_fast, ops),
+                   orthogonal)
 
 
 # ----------------------------------------------------------------------

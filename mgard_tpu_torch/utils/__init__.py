@@ -1,1 +1,1 @@
-from .log import Timer, log  # noqa: F401
+from .log import log  # noqa: F401

@@ -26,11 +26,14 @@ correctness at the cost of that one extra copy.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import sys
 from typing import Callable, List, NamedTuple, Union
 
 import numpy as np
+
+from .trace import NO_SPAN, span
 
 # parts write disjoint destination regions, so assembly parallelizes
 # trivially; numpy block copies release the GIL. 0/1 disables (default on
@@ -106,7 +109,9 @@ def join_into(out: np.ndarray, parts, threads: int | None = None) -> int:
     """Write ``parts`` consecutively into uint8 array ``out``; returns the
     total byte count written. Parts target disjoint regions, so big
     streams are written by a thread pool when ``threads`` (default: the
-    MGARD_TPU_SERIALIZE_THREADS env knob, capped at 4) allows."""
+    MGARD_TPU_SERIALIZE_THREADS env knob, capped at 4) allows. On one
+    thread each run of consecutive Fill parts (BFP's residual compaction)
+    is one ``codec.bfp_compact`` span."""
     parts = list(parts)  # one-shot iterators are walked twice below
     offs, o = [], 0
     for p in parts:
@@ -123,13 +128,23 @@ def join_into(out: np.ndarray, parts, threads: int | None = None) -> int:
                 zip(offs, parts),
             ))
         return o
-    for off, p in zip(offs, parts):
-        _write_part(out[off : off + part_nbytes(p)], p)
+    runs = itertools.groupby(zip(offs, parts),
+                             key=lambda t: isinstance(t[1], Fill))
+    for is_fill, run in runs:
+        with span("codec.bfp_compact") if is_fill else NO_SPAN:
+            for off, p in run:
+                _write_part(out[off : off + part_nbytes(p)], p)
     return o
 
 
 def join(parts) -> bytes:
-    """Assemble parts into one ``bytes`` with a single copy per byte."""
+    """Assemble parts into one ``bytes`` with a single copy per byte (the
+    span ``api.join``)."""
+    with span("api.join"):
+        return _join(parts)
+
+
+def _join(parts) -> bytes:
     parts = list(parts)  # guard one-shot iterators: sized twice below
     total = parts_size(parts)
     if not _HAVE_CAPI:  # pragma: no cover - non-CPython

@@ -1,0 +1,405 @@
+"""PyTorch port, its stage spans and counters (``utils/trace.py``) on the
+CPU: the ``mgard.*`` ranges a torch profiler records around compress /
+decompress (64^3, and the flag-1 shape of test_torch_highlevel.py) and the
+MDR calls (48^3), nested on the caller's thread; the shared no-op object
+without a profiler; the counter registry (the kernels' launch counts, the
+sticky-K and fallback counters on the fallback inputs of
+test_torch_highlevel_fused.py, no copies on the CPU); and the readings of
+``scripts/h100_trace_layers.py`` on synthetic profiler events."""
+
+import importlib
+import importlib.util
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import mgard_tpu_torch as M
+from mgard_tpu_torch import kernels, mdr
+from mgard_tpu_torch.ops import refactor as TR
+from mgard_tpu_torch.utils import trace
+from test_torch_highlevel import (  # noqa: F401 (fixtures)
+    SHAPE, _field, bfp_small, fresh_k_caches)
+from test_torch_highlevel_fused import FUSED_SHAPE, _fused_cfg
+
+torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
+
+log_mod = importlib.import_module("mgard_tpu_torch.utils.log")
+
+_SCRIPT = (pathlib.Path(__file__).resolve().parent.parent / "scripts"
+           / "h100_trace_layers.py")
+_spec = importlib.util.spec_from_file_location("h100_trace_layers", _SCRIPT)
+TL = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(TL)
+
+# every span's enclosing span (None: the call itself)
+PARENTS = {
+    "api.compress": {None},
+    "api.decompress": {None},
+    "api.mdr_refactor": {None},
+    "api.mdr_request": {None},
+    "api.mdr_reconstruct": {None},
+    "api.metadata": {"api.compress", "api.decompress"},
+    "api.join": {"api.compress", "api.mdr_refactor", "codec.plane_encode"},
+    "codec.bfp_compact": {"api.join"},
+    "kernel.front": {"api.compress", "api.decompress"},
+    "kernel.remainder": {"kernel.front"},
+    "codec.lossless": {"api.compress", "api.decompress", "kernel.front"},
+    "kernel.bfp_encode": {"api.compress", "codec.lossless"},
+    "kernel.bfp_decode": {"api.decompress", "codec.lossless"},
+    "codec.bfp_plan": {"kernel.bfp_encode", "kernel.bfp_decode"},
+    "codec.choose_K": {"api.compress", "codec.lossless"},
+    "codec.bfp_blob": {"api.compress"},
+    "codec.bfp_parse": {"api.decompress", "codec.lossless"},
+    "codec.bfp_expand": {"api.decompress", "codec.lossless"},
+    "kernel.mdr_decompose": {"api.mdr_refactor"},
+    "codec.plane_encode": {"api.mdr_refactor"},
+    "codec.plan": {"api.mdr_request"},
+    "kernel.mdr_recompose": {"api.mdr_reconstruct"},
+    "codec.plane_decode": {"api.mdr_reconstruct"},
+}
+FLAG1_SPANS = {"api.compress", "api.decompress", "api.metadata", "api.join",
+               "codec.bfp_compact", "kernel.front", "kernel.remainder",
+               "codec.lossless", "kernel.bfp_encode", "kernel.bfp_decode",
+               "codec.bfp_plan", "codec.choose_K", "codec.bfp_blob",
+               "codec.bfp_parse", "codec.bfp_expand"}
+MDR_SPANS = {"api.mdr_refactor", "api.mdr_request", "api.mdr_reconstruct",
+             "kernel.mdr_decompose", "codec.plane_encode", "codec.plan",
+             "kernel.mdr_recompose", "codec.plane_decode"}
+
+
+def _traced_events(tmp_path, calls):
+    """Run each (kind, fn) of ``calls`` in a ``bench.<kind>`` annotation
+    under a CPU profiler; returns the exported trace's events."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        for kind, fn in calls:
+            with torch.profiler.record_function(f"bench.{kind}"):
+                fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def _check_nesting(events, kinds):
+    """Every mgard span lies inside its parent on its call's thread, under
+    the parent the table allows; no call opens more than 100. Returns the
+    names seen."""
+    seen = set()
+    spans = TL.annotations(events, "mgard.")
+    for kind in kinds:
+        for tid, a, b in TL.calls_of(events, kind):
+            mine = sorted(((s, e, n[len("mgard."):]) for t, s, e, n in spans
+                           if t == tid and a <= s < b),
+                          key=lambda x: (x[0], -x[1]))
+            assert 0 < len(mine) <= 100
+            stack = []
+            for s, e, n in mine:
+                while stack and stack[-1][1] <= s:
+                    stack.pop()
+                parent = stack[-1] if stack else None
+                assert e <= (parent[1] if parent else b) + 1e-3, n
+                assert (parent[2] if parent else None) in PARENTS[n], (
+                    n, parent)
+                seen.add(n)
+                stack.append((s, e, n))
+    return seen
+
+
+def test_span_is_the_shared_noop_without_a_profiler(monkeypatch):
+    assert trace.span("api.compress") is trace.NO_SPAN
+    assert trace.span("codec.x") is trace.span("kernel.y")
+
+    def boom(*a, **k):
+        raise AssertionError("record_function with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    v = _field((32, 32, 32))
+    blob, st = M.compress(v, 1e-3, device="cpu")
+    out, st2 = M.decompress(blob, device="cpu")
+    assert st == st2 == M.compress_status_type.Success
+
+
+def test_span_records_under_a_profiler(tmp_path):
+    events = _traced_events(tmp_path, [("write", lambda: trace.span(
+        "api.x").__enter__().__exit__(None, None, None))])
+    assert [n for *_, n in TL.annotations(events, "mgard.")] == [
+        "mgard.api.x"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert trace.span("api.x") is not trace.NO_SPAN
+
+
+def test_traced_keeps_the_function(tmp_path):
+    @trace.traced("kernel.t")
+    def f(x, y=2):
+        """doc"""
+        return x + y
+
+    assert f(1) == 3 and f.__name__ == "f" and f.__doc__ == "doc"
+    events = _traced_events(tmp_path, [("write", lambda: f(1, y=3))])
+    assert [n for *_, n in TL.annotations(events, "mgard.")] == [
+        "mgard.kernel.t"]
+
+
+def test_flag1_spans_nest_under_their_calls(tmp_path, bfp_small):
+    """The flag-1 main path (BFP cf stream and a BFP remainder): every span
+    of the table that the CPU path runs, each inside its parent."""
+    v = _field(SHAPE)
+    box = {}
+
+    def write():
+        box["blob"], st = M.compress(v, 1e-3, device="cpu")
+        assert st == 0
+
+    def read():
+        out, st = M.decompress(box["blob"], device="cpu")
+        assert st == 0 and float(np.abs(out.numpy() - v).max()) <= 1e-3
+
+    events = _traced_events(tmp_path, [("write", write), ("read", read)])
+    assert _check_nesting(events, ("write", "read")) == FLAG1_SPANS
+
+
+def test_flag0_spans_at_64cubed(tmp_path):
+    v = torch.from_numpy(_field((64, 64, 64)))
+    box = {}
+
+    def write():
+        box["blob"], _ = M.compress(v, 1e-3, device="cpu")
+
+    def read():
+        M.decompress(box["blob"], device="cpu")
+
+    events = _traced_events(tmp_path, [("write", write), ("read", read)])
+    seen = _check_nesting(events, ("write", "read"))
+    assert {"api.compress", "api.decompress", "kernel.front",
+            "kernel.remainder", "codec.lossless", "api.join"} <= seen
+
+
+def test_mdr_spans_at_48cubed(tmp_path):
+    v = torch.from_numpy(_field((48, 48, 48)))
+    box = {}
+
+    def write():
+        box["md"] = mdr.MDRefactor(v, M.Config())
+
+    def read():
+        meta, data = box["md"]
+        meta.prev_used = []
+        mdr.MDRequest(meta, 1e-3)
+        r = mdr.MDReconstruct(meta, data, device="cpu")
+        assert float((r.data - v).abs().max()) <= 1e-3
+
+    events = _traced_events(tmp_path, [("write", write), ("read", read)])
+    assert _check_nesting(events, ("write", "read")) == MDR_SPANS
+    # one plane-codec span a level, never one a plane
+    levels = len(box["md"][0].levels)
+    names = [n for *_, n in TL.annotations(events, "mgard.codec.plane_")]
+    assert names.count("mgard.codec.plane_encode") == levels
+    assert names.count("mgard.codec.plane_decode") <= levels
+
+
+def test_launches_is_the_registrys_launch_group():
+    assert kernels.LAUNCHES is trace.group("launch")
+    kernels.LAUNCHES["bfp_encode"] += 2
+    assert trace.counters()["launch.bfp_encode"] >= 2
+    kernels.reset_launches()
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+    assert "launch.probe_u16_butterfly" in trace.counters()
+
+
+def test_count_snapshot_and_reset():
+    trace.reset_counters()
+    trace.count("t.a")
+    trace.count("t.a", 4)
+    snap = trace.counters()
+    assert snap["t.a"] == 5
+    trace.count("t.a")
+    assert snap["t.a"] == 5 and trace.counters()["t.a"] == 6
+    trace.reset_counters()
+    assert trace.counters()["t.a"] == 0
+    assert all(v == 0 for v in trace.counters().values())
+
+
+def _delta(fn):
+    before = trace.counters()
+    fn()
+    return {k: v - before.get(k, 0) for k, v in trace.counters().items()
+            if v != before.get(k, 0)}
+
+
+def test_stale_K_moves_rechoose(bfp_small):
+    """The inputs of test_stale_sticky_K_rechoose: a coarser, then a finer
+    tolerance on one shape."""
+    v = _field((16, 128, 256))
+    d1 = _delta(lambda: M.compress(v, 1e-2, device="cpu"))
+    assert d1.get("bfp.k_cache.miss", 0) >= 1
+    assert d1["hybrid.flag.1"] == 1 and "bfp.k_cache.rechoose" not in d1
+    d2 = _delta(lambda: M.compress(v, 1e-4, device="cpu"))
+    assert d2["bfp.k_cache.rechoose"] == 1 and d2["hybrid.flag.1"] == 1
+    assert d2.get("bfp.k_cache.hit", 0) >= 1
+
+
+def test_fused_stale_K_counts_the_fall_back_to_flag1(fresh_k_caches):
+    """The inputs of test_fused_stale_K_falls_back_to_flag1_and_refreshes."""
+    v = _field(FUSED_SHAPE)
+    cfg = _fused_cfg()
+    M.compress(v, 1e-2, config=cfg, device="cpu")
+    d = _delta(lambda: M.compress(v, 1e-4, config=cfg, device="cpu"))
+    assert d["hybrid.fallback.v3_to_v2"] == 1
+    assert d["bfp.k_cache.rechoose"] == 1 and d["hybrid.flag.1"] == 1
+    d = _delta(lambda: M.compress(v, 1e-4, config=cfg, device="cpu"))
+    assert d["hybrid.flag.2"] == 1 and not any(
+        k.startswith("hybrid.fallback") for k in d)
+
+
+@pytest.mark.parametrize("K", [0, 6])
+def test_fused_overflow_counts_the_fall_back_to_flag0(fresh_k_caches, K):
+    """The inputs of test_fused_overflow_falls_back_to_flag0."""
+    v = _field(FUSED_SHAPE)
+    cfg = _fused_cfg(K)
+    if not K:
+        M.compress(v, 1e-3, config=cfg, device="cpu")
+    v[3, 5, 7] = 1e4
+    d = _delta(lambda: M.compress(v, 1e-3, config=cfg, device="cpu"))
+    assert d["hybrid.fallback.to_flag0"] == 1 and d["hybrid.flag.0"] == 1
+    assert "hybrid.flag.1" not in d and "hybrid.flag.2" not in d
+
+
+def test_copy_counters_stay_zero_on_the_cpu(bfp_small):
+    v = _field(SHAPE)
+
+    def run():
+        blob, _ = M.compress(v, 1e-3, device="cpu")
+        M.decompress(blob, device="cpu")
+        meta, data = mdr.MDRefactor(torch.from_numpy(v[:32, :32, :32]
+                                                     .copy()), M.Config())
+        mdr.MDRequest(meta, 1e-3)
+        mdr.MDReconstruct(meta, data, device="cpu")
+
+    d = _delta(run)
+    assert not any(k.startswith("copy.") for k in d), d
+    assert d["mdr.plane.bytes_in"] >= d["mdr.plane.bytes_out"] > 0
+    assert sum(d.get(f"mdr.plane.{c}", 0) for c in ("raw", "zlib", "bfx")) \
+        > 0
+
+
+def test_copy_helpers_on_the_cpu_share_memory():
+    a = np.arange(6, dtype=np.float32)
+    t = trace.to_device(a, "cpu")
+    assert t.data_ptr() == a.ctypes.data
+    assert trace.to_host(t) is not None and trace.to_host(t)[5] == 5.0
+
+
+def test_transform_operators_come_up_in_one_span(tmp_path):
+    """A transform on a card copies every dense operator it applies before
+    its first level, one copy each, in one ``copy.htod`` span (the meta
+    device stands in for the card); on the CPU they are the host
+    matrices."""
+    hier = M.get_hierarchy((33, 17, 9), np.float32)
+    levels = tuple(range(hier.l_target, 0, -1))
+    for inverse, orthogonal in ((False, False), (True, False), (True, True)):
+        host = {l: dict(TR._level_ops(hier, l, orthogonal, inverse))
+                for l in levels}
+        n = sum(len(h) for h in host.values())
+        d = _delta(lambda: TR._device_ops(hier, levels, orthogonal, inverse,
+                                          "cpu"))
+        assert not d
+        cpu = TR._device_ops(hier, levels, orthogonal, inverse, "cpu")
+        box = {}
+        events = _traced_events(tmp_path, [("write", lambda: box.update(
+            d=_delta(lambda: box.update(ops=TR._device_ops(
+                hier, levels, orthogonal, inverse, "meta")))))])
+        assert box["d"]["copy.htod.calls"] == n
+        assert [n for *_, n in TL.annotations(events, "mgard.")] == [
+            "mgard.copy.htod"]
+        for l in levels:
+            assert set(box["ops"][l]) == set(host[l]) == set(cpu[l])
+            for k, A in host[l].items():
+                assert box["ops"][l][k].device.type == "meta"
+                assert tuple(box["ops"][l][k].shape) == A.shape
+                np.testing.assert_array_equal(cpu[l][k].numpy(), A)
+
+
+def test_log_time_lines_come_from_the_api_spans(capsys):
+    v = _field((32, 32, 32))
+    cfg = M.Config()
+    cfg.log_level = log_mod.log.TIME
+    old = log_mod.log.level
+    try:
+        blob, _ = M.compress(v, 1e-3, config=cfg, device="cpu")
+        M.decompress(blob, config=cfg, device="cpu")
+    finally:
+        log_mod.log.level = old
+    out = capsys.readouterr().out
+    assert "compress total:" in out and "GB/s" in out
+    assert "decompress total:" in out and "to enqueue" in out
+    assert not hasattr(log_mod, "Timer")
+    assert not hasattr(log_mod.log, "csv") and not hasattr(log_mod.log,
+                                                            "dbg")
+
+
+# ----------------------------------------------------------------------
+# The readings of scripts/h100_trace_layers.py on synthetic events
+# ----------------------------------------------------------------------
+def _x(cat, name, ts, dur, tid=1, **args):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+            "tid": tid, "args": args}
+
+
+EVENTS = [
+    _x("user_annotation", "bench.write", 0.0, 100.0),
+    _x("user_annotation", "mgard.api.compress", 10.0, 80.0),
+    _x("user_annotation", "mgard.kernel.front", 20.0, 30.0),
+    _x("user_annotation", "mgard.copy.dtoh", 30.0, 10.0),
+    _x("user_annotation", "mgard.codec.bfp_blob", 60.0, 20.0),
+    # another thread's spans count for nothing
+    _x("user_annotation", "mgard.codec.other", 0.0, 100.0, tid=2),
+    _x("user_annotation", "bench.read", 200.0, 50.0),
+    _x("user_annotation", "mgard.api.decompress", 200.0, 40.0),
+    _x("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 32.0, 6.0, tid=7),
+    _x("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 52.0, 4.0, tid=7),
+    _x("kernel", "k", 22.0, 4.0, tid=7),
+    _x("kernel", "k2", 210.0, 10.0, tid=7),
+]
+
+
+def test_layer_share_is_self_time_of_the_innermost_span():
+    share = {lay: TL.layer_share(EVENTS, "write", lay)
+             for lay in ("api", "codec", "copy", "kernel", None)}
+    # api.compress 10-20, 50-60, 80-90; kernel.front 20-30, 40-50; copy
+    # 30-40; codec 60-80; outside 0-10, 90-100
+    assert share == pytest.approx({"api": 30.0, "codec": 20.0, "copy": 10.0,
+                                   "kernel": 20.0, None: 20.0})
+    assert sum(share.values()) == pytest.approx(100.0)
+    assert TL.layer_share(EVENTS, "read", "api") == pytest.approx(80.0)
+    assert TL.layer_share(EVENTS, "none", "api") is None
+
+
+def test_idle_by_span_sums_to_the_calls_idle_time():
+    idle = TL.idle_by_span(EVENTS, "write")
+    assert idle == pytest.approx({"(outside)": 20e-6, "api.compress": 26e-6,
+                                  "kernel.front": 16e-6, "copy.dtoh": 4e-6,
+                                  "codec.bfp_blob": 20e-6})
+    busy = 4.0 + 6.0 + 4.0
+    assert sum(idle.values()) == pytest.approx((100.0 - busy) * 1e-6)
+    assert TL.idle_by_span(EVENTS, "read") == pytest.approx(
+        {"api.decompress": 30e-6, "(outside)": 10e-6})
+
+
+def test_dtoh_share_inside_copy_spans_and_span_counts():
+    # 6 us of the first copy inside copy.dtoh, the second outside any
+    assert TL.dtoh_in_copy_span(EVENTS, "write") == pytest.approx(60.0)
+    assert TL.dtoh_in_copy_span(EVENTS, "read") is None
+    assert TL.dtoh_outside(EVENTS, "write") == [
+        (4.0, 4.0, 0, "mgard.api.compress", 4.0)]
+    c = TL.span_counts(EVENTS, "write")
+    assert c["calls"] == 1 and c["most"] == 4
+    assert c["copies_by_parent"] == {"copy.dtoh in kernel.front": 1.0}
+
+
+def test_segments_clamp_children_to_their_parent():
+    segs = TL.segments([(0.0, 10.0, "a"), (5.0, 12.0, "b")], 0.0, 20.0)
+    assert segs == [(0.0, 5.0, "a"), (5.0, 10.0, "b"), (10.0, 20.0, None)]
