@@ -4,7 +4,7 @@
 
 Phases (each prints a line; any failure exits nonzero before the result):
   1. device: require CUDA; print the card's name and power limit;
-  2. build the CUDA kernels K1-K11 and the probes P1-P3 from
+  2. build the CUDA kernels K1-K13 and the probes P1-P3 from
      mgard_tpu_torch/csrc with nvcc (one process per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the
      512^3 geometries of the main path and of Hybrid+BFX (K7/K8 also at
@@ -30,6 +30,9 @@ Phases (each prints a line; any failure exits nonzero before the result):
      stream beside a copy of the rows that moves the same bytes, with
      their ptxas lines), on the edge cases of bfp.BAND_CASES, and on wide
      rows at sb=256; rows one element off 16-byte alignment are refused;
+     K12/K13 (BFP's wire compaction) on the cf stream: the blob and band
+     rows equal to the host path's, each kernel to its plain version,
+     timed beside a copy of the wire words, with their ptxas lines;
      K5/K6 (the BFX codec) on the 512^3 Hybrid+BFX stream, on 8192
      symbols at sb=256/align=1 (a small remainder), on an MDR plane of the
      384^3 finest level and on a stream of 32-bit blocks at sb=4096 (each
@@ -39,7 +42,9 @@ Phases (each prints a line; any failure exits nonzero before the result):
      the 99 bfx planes of one 384^3 MDRefactor;
   4. the main path: compress + decompress a 512^3 float32 field at
      tol=1e-3 (s=inf, ABS, default Config) through the public API, with the
-     launch counters reset just before and read just after (K1-K4);
+     launch counters reset just before and read just after (K1-K4, K12,
+     K13): each BFP blob (cf stream and remainder) compacted and expanded
+     on the card, none on the host (the bfp.wire.* counters);
   5. Hybrid+BFX (Config.lossless=BFX, flag 0): the same field and
      tolerance, the same counters (K5-K8);
   6. the main path at 128^3: flag 1 with a BFX remainder (K1-K6);
@@ -151,6 +156,11 @@ REPO_KERNELS = {
                    "mgard_tpu/lossless/bfp.py:278"),
     "bfp_decode": ("mgard_tpu_torch/csrc/bfp.cu",
                    "mgard_tpu/lossless/bfp.py:329"),
+    # K12/K13 replace no TPU kernel: the host's NumPy band compaction
+    "bfp_compact": ("mgard_tpu_torch/csrc/bfp.cu",
+                    "mgard_tpu_torch/lossless/bfp.py::_compact_sb (host)"),
+    "bfp_expand": ("mgard_tpu_torch/csrc/bfp.cu",
+                   "mgard_tpu_torch/lossless/bfp.py::_expand_resid (host)"),
     "hybrid_inv_v2": ("mgard_tpu_torch/csrc/hybrid_v2.cu",
                       "mgard_tpu/ops/hybrid.py:682"),
     "bfx_encode": ("mgard_tpu_torch/csrc/bfx.cu",
@@ -189,7 +199,8 @@ MDR_PLANE = 24
 # K2/K3 ms at 512^3, cf and remainder stream together, on the same card
 # in their warp-ballot design (PERF.md's kernel table)
 K2_K3_BEFORE = (1.3725, 1.3140)
-MAIN_PATH = ("hybrid_fwd_v2", "bfp_encode", "bfp_decode", "hybrid_inv_v2")
+MAIN_PATH = ("hybrid_fwd_v2", "bfp_encode", "bfp_compact", "bfp_expand",
+             "bfp_decode", "hybrid_inv_v2")
 BFX_PATH = ("hybrid_fwd", "bfx_encode", "bfx_decode", "hybrid_inv")
 SMALL_MAIN_PATH = MAIN_PATH + ("bfx_encode", "bfx_decode")
 FUSED_PATH = ("hybrid_pack_v3", "hybrid_unpack_v3")
@@ -739,7 +750,8 @@ def generic_phases(dev, M, kernels):
         if (st or st2 or not header(blob).roi_enabled
                 or not e_in <= tol / factor or not e_out <= tol
                 or (sec_c, sec_d) != (1, 1) or rr > 1
-                or ln != {"bfp_encode": 1 + rr, "bfp_decode": 1}):
+                or ln != {"bfp_encode": 1 + rr, "bfp_compact": 1,
+                          "bfp_decode": 1, "bfp_expand": 1}):
             raise AssertionError(f"phase 18 {what}: status {st}/{st2}, in-ROI "
                                  f"{e_in}, outside {e_out}, {sec_c} "
                                  f"pre-sorted sections packed ({rr} re-runs), "
@@ -1170,6 +1182,59 @@ def main():
     phase(f"phase 3 K2/K3 cf stream: K={K} E={E} sb={sb} C={C}: bytes and "
           f"rows equal; encode {cf_enc[0]:.4f} ms (plain {cf_enc[1]:.4f}), "
           f"decode {cf_dec[0]:.4f} ms (plain {cf_dec[1]:.4f})")
+
+    # K12/K13, the cf stream's wire compaction: the card's branch writes
+    # the host path's blob and reads it back to K2's band rows; each kernel
+    # equal to its plain version, timed beside a copy of the wire words
+    with Recorder(B, "_on_card", lambda device: False):
+        blob_h = join(B.serialize_prepared_parts(n_cf, K, E, sb, C, crl,
+                                                 *out_k))
+        base_h, _, rbuf_h, _, _ = B.deserialize_prepared(blob_k, 0, dev)
+    if blob_h != blob_k:
+        raise AssertionError("K12 (cf stream) bytes differ from the host's")
+    base_d, _, rbuf_d, _, _ = B.deserialize_prepared(blob_k, 0, dev)
+    nrow = rbuf_d.shape[0]
+    if not (torch.equal(base_d, base_h) and torch.equal(rbuf_d, rbuf_h[:nrow])
+            and torch.equal(rbuf_d, out_k[1][:nrow])
+            and not rbuf_h[nrow:].any()):
+        raise AssertionError("K13 (cf stream) differs from the host's "
+                             "expansion")
+    geo = B._band_geometry(crl.cpu().numpy(), E, C, sb)
+    wtab = B._wire_table(*geo[:3], C)
+    wtab_d = torch.from_numpy(wtab).to(dev)
+    wire = B.compact_wire(out_k[1], wtab, C)
+    if not (torch.equal(wire, B.compact_wire_plain(out_k[1], wtab_d, C))
+            and torch.equal(B.expand_wire(wire, wtab, C, nrow),
+                            B.expand_wire_plain(wire, wtab_d, C, nrow))):
+        raise AssertionError("K12/K13 (cf stream) differ from plain")
+    wbuf, xbuf = torch.empty_like(wire), torch.empty_like(rbuf_d)
+    k12_ms = time_ms(lambda: kernels.launch(
+        "bfp_compact", out_k[1].data_ptr(), wtab_d.data_ptr(),
+        wbuf.data_ptr(), wtab.shape[0], C, kernels.stream(dev)), 20)
+    k13_ms = time_ms(lambda: kernels.launch(
+        "bfp_expand", wire.data_ptr(), wtab_d.data_ptr(), xbuf.data_ptr(),
+        wtab.shape[0], C, kernels.stream(dev)), 20)
+    if not (torch.equal(wbuf, wire) and torch.equal(xbuf, rbuf_d)):
+        raise AssertionError("K12/K13 timed launches differ")
+    k12_plain = time_ms(lambda: B.compact_wire_plain(out_k[1], wtab_d, C), 2)
+    k13_plain = time_ms(lambda: B.expand_wire_plain(wire, wtab_d, C, nrow), 2)
+    wire_copy = time_ms(lambda: wire.clone(), 20)
+    # bytes: the valid words read and written (K13: the whole band rows
+    # written), and the table
+    k12_bytes = 2 * tensor_bytes(wire) + tensor_bytes(wtab_d)
+    k13_bytes = tensor_bytes(wire, rbuf_d, wtab_d)
+    phase(f"phase 3 K12/K13 cf stream: {wire.numel()} wire words, {nrow} "
+          f"band rows, {wtab.shape[0]} bands: blob and band rows equal to "
+          f"the host path's; K12 {k12_ms:.4f} ms (bound "
+          f"{bound(k12_bytes, 0)[0]:.4f}), K13 {k13_ms:.4f} ms (bound "
+          f"{bound(k13_bytes, 0)[0]:.4f}); a copy of the wire words "
+          f"{wire_copy:.4f} ms")
+    for line in ptxas_lines(kernels.BUILD_LOG, ("bfp_compact_kernel",
+                                                "bfp_expand_kernel")):
+        phase("phase 3 K12/K13 ptxas " + line)
+    report("bfp_compact", 0.0, k12_ms, k12_plain, k12_bytes, 0)
+    report("bfp_expand", 0.0, k13_ms, k13_plain, k13_bytes, 0)
+    del blob_h, base_h, rbuf_h, base_d, rbuf_d, wire, wbuf, xbuf, wtab_d
 
     # u32 rows at the same size: the cf payload as the int32 rows of a
     # stream with K+E > 16 (the flag-0 fallback's row type), K=9 E=8
@@ -1788,6 +1853,9 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
+    from mgard_tpu_torch.utils import trace
+
+    wire0 = trace.counters()
     times = []
     for _rep in range(3):
         t0 = time.perf_counter()
@@ -1798,6 +1866,15 @@ def main():
         torch.cuda.synchronize()
         times.append((t1 - t0, time.perf_counter() - t1))
     launches_main = dict(kernels.LAUNCHES)
+    wire1 = trace.counters()
+    wire = [wire1.get(k, 0) - wire0.get(k, 0)
+            for k in ("bfp.wire.device", "bfp.wire.host")]
+    # every BFP blob of the main path (the cf stream and the remainder) is
+    # compacted and expanded on the card, none on the host
+    if wire != [launches_main["bfp_compact"] + launches_main["bfp_expand"],
+                0] or launches_main["bfp_compact"] != 6:
+        raise AssertionError(f"main path: BFP blobs on the card / host "
+                             f"{wire}, launches {launches_main}")
     peak = torch.cuda.max_memory_allocated(dev)
     if st != M.compress_status_type.Success or \
             st2 != M.compress_status_type.Success:
@@ -1823,8 +1900,8 @@ def main():
           f"{tc * 1e3:.1f} ms ({nbytes / tc / 1e9:.3f} GB/s), decompress "
           f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [best of 3; "
           f"first {times[0][0] * 1e3:.1f} / {times[0][1] * 1e3:.1f} ms]; "
-          f"peak device memory {peak / 2**30:.3f} GiB; launches "
-          f"{launches_main}")
+          f"peak device memory {peak / 2**30:.3f} GiB; BFP blobs with "
+          f"the wire on the card / host {wire}; launches {launches_main}")
     del out
 
     # -- 5. Hybrid+BFX ---------------------------------------------------

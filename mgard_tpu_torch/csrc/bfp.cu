@@ -309,3 +309,144 @@ MGARD_EXPORT int bfp_decode(const void* base, const void* resid,
         (const int*)cnt, (uint16_t*)out, NB, C, sbc, K, E);
   return mgard_launch_status();
 }
+
+// K12 bfp_compact and K13 bfp_expand: BFP5's wire compaction on the card.
+//
+// They replace no TPU kernel: the JAX package (and the port's CPU path,
+// mgard_tpu_torch/lossless/bfp.py::_compact_sb and ::_expand_resid) maps
+// between K2/K3's row-padded bands and the compact wire words on the
+// host, in NumPy. Plain versions: compact_wire_plain and
+// expand_wire_plain in mgard_tpu_torch/lossless/bfp.py.
+//
+// The wire holds, superblock by superblock and plane by plane, the C slots
+// of each band, slot b as its first cnt words; the device layout holds
+// slot b at rows row0 + b*rband of 128 words. A band is one row of tab:
+// (row0, rband, cnt, wire offset), int64, from the blob's sidecar.
+//
+// What bounds them on the H100: memory, and nothing else (no arithmetic
+// but an index). K12 reads and writes the C*cnt valid words of each band;
+// K13 reads them and writes the band's whole C*rband*128 words (the
+// padding as zeros), so every word of the band buffer is written exactly
+// once and the buffer needs no zero fill.
+//
+// Design: a CTA per band. K12 walks the band's words in wire order
+// k = b*cnt + i, neighbouring threads on neighbouring k, so a warp reads
+// and writes 128-byte segments, each thread holding WU = 8 loads in flight
+// before it stores (the card needs ~40 KB in flight an SM to reach its
+// bandwidth; 8 CTAs of 256 threads an SM hold 64 KB). K13 walks the band
+// buffer in 16-byte quads q = b*rband*32 + i/4 (a slot's rows start on a
+// 512-byte boundary, so every store is one aligned vector store), each
+// thread loading its quad's up to four wire words, WQ = 4 quads in flight.
+// A band with nothing to move returns at once.
+namespace {
+
+constexpr int WU = 8;  // K12: loads in flight a thread
+constexpr int WQ = 4;  // K13: 16-byte stores (4 loads each) a thread
+
+// floor(k / d) for k < 2^31 and 1 <= d < 2^31 by a multiply and a shift
+// (Granlund and Montgomery's round-up method), its constants made once a
+// CTA: a band's index k splits into slot and column at ~5 instructions.
+struct Divider {
+  unsigned m;
+  int l;
+};
+
+__device__ __forceinline__ Divider divider(unsigned d) {
+  const int l = 32 - __clz(d - 1);  // ceil(log2 d)
+  return {(unsigned)(((1ull << 32) * ((1ull << l) - d)) / d + 1), l};
+}
+
+__device__ __forceinline__ unsigned divide(unsigned k, Divider v) {
+  return (__umulhi(k, v.m) + k) >> v.l;
+}
+
+__global__ void __launch_bounds__(NT)
+bfp_compact_kernel(const unsigned* __restrict__ resid,
+                   const long long* __restrict__ tab,
+                   unsigned* __restrict__ out, int C) {
+  const long long* t = tab + 4 * (long long)blockIdx.x;
+  const unsigned cnt = (unsigned)t[2];
+  if (cnt == 0) return;
+  const unsigned* src = resid + t[0] * LANES;
+  const unsigned rw = (unsigned)t[1] * LANES, n = C * cnt;
+  const Divider dv = divider(cnt);
+  unsigned* dst = out + t[3];
+  for (unsigned k0 = threadIdx.x; k0 < n; k0 += NT * WU) {
+    unsigned v[WU];
+#pragma unroll
+    for (int u = 0; u < WU; ++u) {
+      const unsigned k = k0 + u * NT;
+      if (k < n) {
+        const unsigned b = divide(k, dv);
+        v[u] = __ldg(src + (size_t)b * rw + (k - b * cnt));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < WU; ++u) {
+      const unsigned k = k0 + u * NT;
+      if (k < n) dst[k] = v[u];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+bfp_expand_kernel(const unsigned* __restrict__ wire,
+                  const long long* __restrict__ tab,
+                  unsigned* __restrict__ resid, int C) {
+  const long long* t = tab + 4 * (long long)blockIdx.x;
+  const unsigned rq = (unsigned)t[1] * (LANES / 4);  // quads a slot
+  if (rq == 0) return;
+  const unsigned cnt = (unsigned)t[2], n = C * rq;
+  const Divider dv = divider(rq);
+  const unsigned* src = wire + t[3];
+  uint4* dst = reinterpret_cast<uint4*>(resid + t[0] * LANES);
+  for (unsigned q0 = threadIdx.x; q0 < n; q0 += NT * WQ) {
+    uint4 v[WQ];
+#pragma unroll
+    for (int u = 0; u < WQ; ++u) {
+      const unsigned q = q0 + u * NT;
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+      if (q < n) {
+        const unsigned b = divide(q, dv), i = 4 * (q - b * rq);
+        const unsigned* s = src + (size_t)b * cnt + i;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (i + e < cnt) w[e] = __ldg(s + e);
+      }
+      v[u] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+#pragma unroll
+    for (int u = 0; u < WQ; ++u) {
+      const unsigned q = q0 + u * NT;
+      if (q < n) dst[q] = v[u];
+    }
+  }
+}
+
+}  // namespace
+
+// resid: K2's band buffer (int32 rows of 128); tab: (bands, 4) int64 rows
+// (row0, rband, cnt, wire offset), cnt <= rband*128 and C*rband*128 < 2^31
+// (the wrapper checks); out: the wire words, sum of C*cnt, each written
+// once.
+MGARD_EXPORT int bfp_compact(const void* resid, const void* tab, void* out,
+                             long long bands, int C, void* stream) {
+  if (bands <= 0 || bands > 0x7FFFFFFFLL || C < 1)
+    return (int)cudaErrorInvalidValue;
+  bfp_compact_kernel<<<(unsigned)bands, NT, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)resid, (const long long*)tab, (unsigned*)out, C);
+  return mgard_launch_status();
+}
+
+// The mirror of bfp_compact: wire words -> every word of the bands of tab
+// in resid (the valid words, and zeros past cnt in each slot); resid must
+// be 16-byte aligned.
+MGARD_EXPORT int bfp_expand(const void* wire, const void* tab, void* resid,
+                            long long bands, int C, void* stream) {
+  if (bands <= 0 || bands > 0x7FFFFFFFLL || C < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!mgard_aligned16(resid)) return (int)cudaErrorMisalignedAddress;
+  bfp_expand_kernel<<<(unsigned)bands, NT, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)wire, (const long long*)tab, (unsigned*)resid, C);
+  return mgard_launch_status();
+}

@@ -52,6 +52,10 @@ _SIGNATURES = {
     # NB, C, sbc, K, E, stream
     "bfp_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                    _I, _P],
+    # resid, tab, out, bands, C, stream
+    "bfp_compact": [_P, _P, _P, _L, _I, _P],
+    # wire, tab, resid, bands, C, stream
+    "bfp_expand": [_P, _P, _P, _L, _I, _P],
     # sym, widths, scratch, offs, out, NB, sb, align, stream
     "bfx_encode": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     # words, widths, scratch, sym, NB, sb, align, stream

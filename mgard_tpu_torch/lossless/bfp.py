@@ -13,9 +13,13 @@ Two CUDA kernels do the bit packing on the GPU: ``encode_bands`` (K2,
 csrc/bfp.cu) and ``decode_bands`` (K3). Both take natural-order chunk rows
 and the sort rank; on the card a thread owns a block of a sorted column
 and reads (or writes) its chunk through the inverse of rank, so the sort
-needs no row gather pass on either side. Each wrapper takes the plain
-version beside it for CPU tensors and launches its kernel for CUDA
-tensors.
+needs no row gather pass on either side. Two more map K2's row-padded
+bands to the compact wire words and back: ``compact_wire`` (K12) and
+``expand_wire`` (K13), so that on the card the host moves each wire byte
+once (a copy straight into the blob, an upload straight from it); on the
+CPU the NumPy functions ``_compact_sb`` / ``_expand_resid`` do that on
+the host. Each wrapper takes the plain version beside it for CPU tensors
+and launches its kernel for CUDA tensors.
 
 Packed words are int32 bit patterns and u16 payloads ``torch.int16`` bit
 patterns (torch lacks shifts and max on uint32/uint16 on the CPU).
@@ -32,7 +36,7 @@ from .. import kernels
 from ..ops.compact import masked_indices
 from ..ops.hybrid import bit_length
 from ..utils.trace import count, span, to_device, to_host, traced
-from .bfx import BS, _bit_transpose32, _unzigzag, _zigzag
+from .bfx import BS, _bit_transpose32, _blob_tensor, _unzigzag, _zigzag
 from .huffman import device_get_prefix
 
 SB_BLOCKS = 16384
@@ -208,23 +212,30 @@ BAND_CASES = (
 )
 
 
-def band_case(spec, device="cpu", seed: int = 0):
-    """Inputs of one BAND_CASES entry: (encode_bands arguments, cnt,
-    resid_rows). Every chunk's width stays within K+E and the row width,
-    so K3 gives the rows back."""
-    _name, bits, K, E, sb, C, nsb, widths, static = spec
-    rng = np.random.default_rng(seed)
+def case_widths(spec, rng) -> np.ndarray:
+    """The (NC,) chunk widths of one BAND_CASES entry, drawn from rng."""
+    _name, bits, K, E, sb, C, nsb, widths, _static = spec
     sbc = sb // C
     NC = nsb * sbc
     wmax = min(K + E, bits)
     if widths == "all":
-        cw = rng.permutation(np.arange(NC) % (wmax + 1))
-    elif widths == "one":
-        cw = np.full(NC, min(K + 3, wmax))
-    else:
-        cw = rng.integers(0, (K + 3 if widths == "low" else wmax) + 1, NC)
-        if widths == "mixed":
-            cw[:sbc] = 0
+        return rng.permutation(np.arange(NC) % (wmax + 1))
+    if widths == "one":
+        return np.full(NC, min(K + 3, wmax))
+    cw = rng.integers(0, (K + 3 if widths == "low" else wmax) + 1, NC)
+    if widths == "mixed":
+        cw[:sbc] = 0
+    return cw
+
+
+def band_case(spec, device="cpu", seed: int = 0):
+    """Inputs of one BAND_CASES entry: (encode_bands arguments, cnt,
+    resid_rows). Every chunk's width stays within K+E and the row width,
+    so K3 gives the rows back."""
+    _name, bits, K, E, sb, C, nsb, _widths, static = spec
+    rng = np.random.default_rng(seed)
+    cw = case_widths(spec, rng)
+    NC = cw.shape[0]
     sym = rng.integers(0, 1 << 32, (NC, C * BS), np.uint64)
     sym &= (np.uint64(1) << cw[:, None].astype(np.uint64)) - np.uint64(1)
     top = np.where(cw > 0, np.uint64(1) << np.maximum(cw - 1, 0).astype(
@@ -407,21 +418,34 @@ def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int, NB: int,
 
 
 # ----------------------------------------------------------------------
-# Wire compaction (host side): map between the device row-padded band
-# layout and the compact valid-words wire layout, from the sidecar alone
+# Wire compaction: map between the row-padded band layout of K2/K3 and the
+# compact valid-words wire layout, from the sidecar alone. A residual
+# tensor on the card takes K12/K13 (csrc/bfp.cu), so the host moves each
+# wire byte once; elsewhere the NumPy functions below do it on the host.
 # ----------------------------------------------------------------------
-def _band_geometry(crl_h: np.ndarray, E: int, C: int, sb: int,
-                   static_cap: bool = False):
+def _wire_counts(crl, E: int, C: int, sb: int) -> np.ndarray:
+    """(NSB, E) host array cnt[s, j] = #(rl > j) over superblock s of the
+    residual lengths crl (NC,): each superblock's histogram summed from
+    the top, counted where crl lies (a host array, or a tensor: on the card
+    one small copy brings the counts over)."""
+    t = torch.as_tensor(crl).long()
+    NSB = t.shape[0] * C // sb
+    keys = t.reshape(NSB, -1) + (E + 1) * torch.arange(
+        NSB, device=t.device)[:, None]
+    hist = torch.bincount(keys.reshape(-1), minlength=NSB * (E + 1))
+    return to_host(hist.reshape(NSB, E + 1)[:, 1:].flip(1).cumsum(1).flip(1))
+
+
+def _band_geometry(crl, E: int, C: int, sb: int, static_cap: bool = False):
     """Per-(superblock, plane) valid word count cnt, band row count rband,
-    global band start row, and total padded rows. Counts are
-    permutation-invariant, so the sidecar alone determines them.
-    static_cap describes the device layout of the fused flag-2 front end
-    (_static_plan); the wire bytes are the same either way, since
-    compaction strips the padding."""
+    global band start row, and total padded rows, from the residual
+    lengths crl (_wire_counts). Counts are permutation-invariant, so the
+    sidecar alone determines them. static_cap describes the device layout
+    of the fused flag-2 front end (_static_plan); the wire bytes are the
+    same either way, since compaction strips the padding."""
+    cnt = _wire_counts(crl, E, C, sb)
+    NSB = cnt.shape[0]
     sbc = sb // C
-    NSB = (crl_h.shape[0] * C) // sb
-    crl2 = crl_h.reshape(NSB, sbc)
-    cnt = (crl2[:, None, :] > np.arange(E)[None, :, None]).sum(2)
     if static_cap:
         CAP = E * (sb // LANES)
         rband = np.full_like(cnt, sbc // LANES)
@@ -435,6 +459,103 @@ def _band_geometry(crl_h: np.ndarray, E: int, C: int, sb: int,
     band_start = (ends - rows_p).reshape(NSB, E)
     rows = int(ends[-1]) if ends.size else 0
     return cnt, rband, band_start, rows
+
+
+def _wire_table(cnt, rband, band_start, C: int) -> np.ndarray:
+    """(bands, 4) int64 rows (start row, rband, cnt, wire offset) of K12 /
+    K13, one a (superblock, plane) band, in wire order."""
+    if C * LANES * int(rband.max(initial=0)) >= 2 ** 31:
+        raise ValueError("a BFP band of 2^31 words or more")
+    words = C * cnt.reshape(-1)
+    return np.stack([band_start.reshape(-1), rband.reshape(-1),
+                     cnt.reshape(-1), np.cumsum(words) - words],
+                    1).astype(np.int64)
+
+
+def _wire_index(tab, C: int):
+    """Band-buffer word of every wire word, in wire order (plain K12/K13)."""
+    row0, rband, cnt, woff = tab.unbind(1)
+    n = C * cnt
+    band = torch.repeat_interleave(
+        torch.arange(tab.shape[0], device=tab.device), n)
+    k = torch.arange(int(n.sum()), device=tab.device) - woff[band]
+    b = k // cnt[band]
+    return (row0[band] + b * rband[band]) * LANES + k - b * cnt[band]
+
+
+def compact_wire_plain(resid2d, tab, C: int):
+    """Plain version of K12: the (words,) int32 wire words of the bands of
+    tab (int64, _wire_table) in resid2d's row-padded layout."""
+    return resid2d.reshape(-1)[_wire_index(tab, C)]
+
+
+def expand_wire_plain(wire, tab, C: int, rows: int):
+    """Plain version of K13: wire words -> (rows, 128) int32 band buffer,
+    zero past each slot's valid words."""
+    out = torch.zeros(rows * LANES, dtype=_I32, device=wire.device)
+    out[_wire_index(tab, C)] = wire
+    return out.reshape(rows, LANES)
+
+
+def _check_wire(tab_h, C: int, rows: int):
+    """The band rows of tab_h fit in rows; returns the wire word count."""
+    if tab_h.ndim != 2 or tab_h.shape[1] != 4 or C < 1:
+        raise ValueError(f"bad wire table {tab_h.shape}, C={C}")
+    end = tab_h[:, 0] + C * tab_h[:, 1]
+    if int(end.max(initial=0)) > rows or (tab_h[:, 2]
+                                          > LANES * tab_h[:, 1]).any():
+        raise ValueError(f"wire table outside {rows} band rows")
+    return C * int(tab_h[:, 2].sum())
+
+
+@traced("kernel.bfp_compact")
+def compact_wire(resid2d, tab_h: np.ndarray, C: int):
+    """K12 wrapper: the row-padded bands of resid2d (rows, 128) int32 ->
+    the (words,) int32 compact wire words of the bands of tab_h (host,
+    _wire_table), on resid2d's device. Same output as compact_wire_plain."""
+    dev = resid2d.device
+    if resid2d.dtype != _I32 or resid2d.ndim != 2 or \
+            resid2d.shape[1] != LANES or not resid2d.is_contiguous():
+        raise ValueError("resid2d: expected contiguous int32 (rows, 128)")
+    words = _check_wire(tab_h, C, resid2d.shape[0])
+    tab = to_device(tab_h, dev)
+    if dev.type == "cpu":
+        return compact_wire_plain(resid2d, tab, C)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    out = torch.empty(words, dtype=_I32, device=dev)
+    if words:
+        kernels.launch("bfp_compact", resid2d.data_ptr(), tab.data_ptr(),
+                       out.data_ptr(), tab.shape[0], C, kernels.stream(dev))
+    return out
+
+
+@traced("kernel.bfp_expand")
+def expand_wire(wire, tab_h: np.ndarray, C: int, rows: int):
+    """K13 wrapper: (words,) int32 wire words -> (rows, 128) int32 band
+    buffer on wire's device, every word written (zero past each slot's
+    valid words). Same output as expand_wire_plain; a stream with no band
+    rows gets one row of zeros (K3's plain version indexes it)."""
+    dev = wire.device
+    words = _check_wire(tab_h, C, rows)
+    kernels.check_tensor("wire", wire, _I32, (words,), dev)
+    if not rows:
+        return torch.zeros((1, LANES), dtype=_I32, device=dev)
+    tab = to_device(tab_h, dev)
+    if dev.type == "cpu":
+        return expand_wire_plain(wire, tab, C, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    out = torch.empty((rows, LANES), dtype=_I32, device=dev)
+    kernels.launch("bfp_expand", wire.data_ptr(), tab.data_ptr(),
+                   out.data_ptr(), tab.shape[0], C, kernels.stream(dev))
+    return out
+
+
+def _on_card(device) -> bool:
+    """Whether BFP's wire compaction of a blob runs on the card (K12/K13)
+    or on the host: the device its tensors live on decides."""
+    return torch.device(device).type == "cuda"
 
 
 def _compact_sb(out: np.ndarray, resid_flat: np.ndarray, cnt, rband,
@@ -460,32 +581,44 @@ def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
                 resid2d, resid_rows, exc_cnt: int,
                 static_cap: bool = False) -> list:
     """BFP5 blob as bytesink parts: header, nibble sidecar, base planes and
-    one residual Fill per superblock (band compaction writes straight into
-    the final blob). Under static_cap the whole residual buffer comes to
-    the host: every superblock's slot holds valid words."""
-    from ..utils.bytesink import Fill
+    the compact residual words. On the card K12 compacts the residual
+    there, and the base planes and the wire words are Fills that copy from
+    the card straight into the final blob. On the host the residual is one
+    Fill a superblock, compacting the device_get_prefix copy in NumPy;
+    under static_cap the whole residual buffer comes to the host then:
+    every superblock's slot holds valid words."""
+    from ..utils.bytesink import Fill, device_fill
 
-    rows_i = (resid2d.shape[0] if static_cap
-              else int(to_host(resid_rows)) if torch.is_tensor(resid_rows)
-              else int(resid_rows))
-    crl_h = to_host(crl)
-    rl_h = crl_h.astype(np.uint8)
+    cnt, rband, band_start, _ = _band_geometry(crl, E, C, sb, static_cap)
+    rl_h = to_host(crl).astype(np.uint8)
     if rl_h.shape[0] % 2:
         rl_h = np.concatenate([rl_h, np.zeros(1, np.uint8)])
     nib = rl_h[0::2] | (rl_h[1::2] << 4)
-    base_h = (to_host(base[:, :K].contiguous()).view("<u4") if K
-              else np.zeros(0, "<u4"))
-    resid_flat = device_get_prefix(resid2d.reshape(-1),
-                                   rows_i * LANES).view("<u4")
-    cnt, rband, band_start, _ = _band_geometry(crl_h, E, C, sb, static_cap)
     words = int(cnt.sum()) * C
     head = struct.pack(_HDR, _MAGIC, n, words, K, E, sb, C, exc_cnt)
-    parts = [head, nib.astype(np.uint8), base_h]
+    parts = [head, nib]
+    if _on_card(resid2d.device):
+        count("bfp.wire.device")
+        if K:
+            parts.append(device_fill(base[:, :K].contiguous()))
+        if words:
+            parts.append(device_fill(compact_wire(
+                resid2d, _wire_table(cnt, rband, band_start, C), C)))
+        return parts
+    count("bfp.wire.host")
+    rows_i = (resid2d.shape[0] if static_cap
+              else int(to_host(resid_rows)) if torch.is_tensor(resid_rows)
+              else int(resid_rows))
+    if K:
+        parts.append(to_host(base[:, :K].contiguous()).view("<u4"))
+    resid_flat = device_get_prefix(resid2d.reshape(-1),
+                                   rows_i * LANES).view("<u4")
     words_sb = cnt.sum(1) * C
     for s in range(cnt.shape[0]):
         if int(words_sb[s]):
             parts.append(Fill(4 * int(words_sb[s]), lambda d, s=s: _compact_sb(
-                d.view("<u4"), resid_flat, cnt, rband, band_start, C, s)))
+                d.view("<u4"), resid_flat, cnt, rband, band_start, C, s),
+                "codec.bfp_compact"))
     return parts
 
 
@@ -527,7 +660,8 @@ def _expand_resid(compact: np.ndarray, crl_h: np.ndarray, E: int, C: int,
 
 @traced("codec.bfp_parse")
 def _parse(data: bytes, offset: int):
-    """Header, sidecar and base planes of a BFP5 blob (host arrays)."""
+    """Header and sidecar of a BFP5 blob: (geometry, residual lengths (NC,)
+    int32, offset of the body: base planes, then residual words)."""
     magic, n, resid_words, K, E, sb, C, cnt = struct.unpack_from(
         _HDR, data, offset)
     if magic != _MAGIC:
@@ -535,13 +669,11 @@ def _parse(data: bytes, offset: int):
     p = offset + struct.calcsize(_HDR)
     geom = dict(n=n, resid_words=resid_words, K=K, E=E, sb=sb, C=C, cnt=cnt)
     if n == 0:
-        return geom, None, None, p
+        return geom, None, p
     if not (1 <= E <= 15 and K + E <= 32 and sb % LANES == 0 and C >= 1
             and sb % (C * LANES) == 0):
         raise ValueError(f"BFP blob geometry K={K} E={E} sb={sb} C={C}")
-    NB = _pad_to(n, sb) // BS
-    NSB = NB // sb
-    NC = NB // C
+    NC = _pad_to(n, sb) // BS // C
     nnib = (NC + 1) // 2
     nib = np.frombuffer(data, np.uint8, nnib, p)
     p += nnib
@@ -551,12 +683,46 @@ def _parse(data: bytes, offset: int):
     rl = rl[:NC]
     if rl.max(initial=0) > E:
         raise ValueError(f"BFP sidecar holds residual lengths above E={E}")
-    base = np.zeros((NSB, max(K, 1), C, sb // C), np.uint32)
+    return geom, rl, p
+
+
+def _body(data: bytes, p: int, geom: dict, rl: np.ndarray, device,
+          static_cap: bool = False):
+    """The sidecar rl and the body of a blob at p as int32 tensors on
+    device: base planes (NSB, max(K,1), C, sbc), residual lengths (NC,),
+    row-padded residual bands (rows, 128), and the offset past the body.
+    To the card both word ranges go up in one copy straight from the blob,
+    and K13 expands the bands there; elsewhere NumPy builds both on the
+    host. static_cap expands into the static-cap layout."""
+    n, K, E, sb, C = (geom[k] for k in ("n", "K", "E", "sb", "C"))
+    NB = _pad_to(n, sb) // BS
+    NSB, sbc = NB // sb, sb // C
+    nbase, words = K * NB, geom["resid_words"]
+    end = p + 4 * (nbase + words)
+    crl = _to_dev(rl, device)
+    if _on_card(device):
+        count("bfp.wire.device")
+        cnt, rband, band_start, rows = _band_geometry(crl, E, C, sb,
+                                                      static_cap)
+        if int(cnt.sum()) * C != words:
+            raise ValueError(f"BFP resid stream has {words} words, sidecar "
+                             f"implies {int(cnt.sum()) * C}")
+        body = to_device(_blob_tensor(np.frombuffer(data, np.uint8,
+                                                    end - p, p)),
+                         device).view(_I32)
+        base = (body[:nbase].view(NSB, K, C, sbc) if K else
+                torch.zeros((NSB, 1, C, sbc), dtype=_I32, device=device))
+        resid = expand_wire(body[nbase:], _wire_table(cnt, rband,
+                                                      band_start, C), C, rows)
+        return base, crl, resid, end
+    count("bfp.wire.host")
+    base = np.zeros((NSB, max(K, 1), C, sbc), np.uint32)
     if K:
-        base[:, :K] = np.frombuffer(data, "<u4", K * NB, p).reshape(
-            NSB, K, C, sb // C)
-        p += 4 * K * NB
-    return geom, rl, base, p
+        base[:, :K] = np.frombuffer(data, "<u4", nbase, p).reshape(
+            NSB, K, C, sbc)
+    rbuf = _expand_resid(np.frombuffer(data, "<u4", words, p + 4 * nbase),
+                         rl, E, C, sb, static_cap)
+    return _to_dev(base, device), crl, _to_dev(rbuf, device), end
 
 
 def _to_dev(a: np.ndarray, device):
@@ -568,17 +734,14 @@ def deserialize_prepared(data: bytes, offset: int = 0, device="cpu",
     """Parse an exception-free BFP5 blob into tensors for decode_core_zz.
     Returns (base, crl, resid2d, (n, K, E, sb, C), consumed). static_cap
     expands the residual words into the static-cap layout."""
-    geom, rl, base, p = _parse(data, offset)
+    geom, rl, p = _parse(data, offset)
     if geom["cnt"]:
         raise ValueError(
             "prepared-payload decode requires an exception-free blob")
     if geom["n"] == 0:
         raise ValueError("empty prepared-payload blob")
-    resid = np.frombuffer(data, "<u4", geom["resid_words"], p)
-    p += 4 * geom["resid_words"]
-    rbuf = _expand_resid(resid, rl, geom["E"], geom["C"], geom["sb"],
-                         static_cap)
-    return (_to_dev(base, device), _to_dev(rl, device), _to_dev(rbuf, device),
+    base, crl, rbuf, p = _body(data, p, geom, rl, device, static_cap)
+    return (base, crl, rbuf,
             tuple(geom[k] for k in ("n", "K", "E", "sb", "C")), p - offset)
 
 
@@ -705,23 +868,20 @@ def encode(symbols, config=None) -> bytes:
 
 def decode(data: bytes, offset: int = 0, device="cpu"):
     """BFP5 blob -> ((n,) int32 symbols on device, bytes consumed)."""
-    geom, rl, base, p = _parse(data, offset)
+    geom, rl, p = _parse(data, offset)
     n, K, E, sb, C, cnt = (geom[k] for k in ("n", "K", "E", "sb", "C", "cnt"))
     if n == 0:
         return torch.zeros(0, dtype=_I32, device=device), p - offset
     NB = _pad_to(n, sb) // BS
     NC = NB // C
-    resid = np.frombuffer(data, "<u4", geom["resid_words"], p)
-    p += 4 * geom["resid_words"]
+    base, crl, rbuf, p = _body(data, p, geom, rl, device)
     ids = np.frombuffer(data, "<u4", cnt, p).astype(np.int32)
     p += 4 * cnt
     blocks = np.frombuffer(data, "<i4", cnt * C * BS, p).reshape(cnt, C * BS)
     p += 4 * cnt * C * BS
     if cnt and (ids.min() < 0 or ids.max() >= NC):
         raise ValueError("BFP exception id out of range")
-    rbuf = _expand_resid(resid, rl, E, C, sb)
     sym = decode_core(
-        _to_dev(base, device), _to_dev(rl, device), _to_dev(rbuf, device),
-        to_device(ids, device), to_device(blocks.copy(), device), K, E, sb,
-        NB, C)
+        base, crl, rbuf, to_device(ids, device),
+        to_device(blocks.copy(), device), K, E, sb, NB, C)
     return sym[:n], p - offset

@@ -40,8 +40,8 @@ import torch
 
 from .. import kernels
 from ..ops.hybrid import bit_length
-from ..utils.bytesink import Fill, join
-from ..utils.trace import count, span, to_device, to_host
+from ..utils.bytesink import device_fill, join
+from ..utils.trace import to_device, to_host
 
 BS = 32  # symbols per block
 SB_BLOCKS = 4096  # blocks per superblock on the kernel path (CUDA)
@@ -323,17 +323,7 @@ def serialize_device_parts(state) -> list:
     total_i = int(to_host(total))
     head = struct.pack(_HDR, _MAGIC, n, total_i, sb, align)
 
-    def words_into(dst):  # little-endian u32 words as bytes
-        src = words[:total_i].view(torch.uint8)
-        if src.device.type == "cpu":
-            torch.from_numpy(dst).copy_(src)
-            return
-        with span("copy.dtoh"):
-            torch.from_numpy(dst).copy_(src)
-        count("copy.dtoh.calls")
-        count("copy.dtoh.bytes", dst.nbytes)
-
-    return [head, to_host(widths), Fill(4 * total_i, words_into)]
+    return [head, to_host(widths), device_fill(words[:total_i])]
 
 
 def encode(symbols, config=None) -> bytes:

@@ -13,7 +13,8 @@ A part is one of
     strided view of the destination when alignment admits it);
   - :class:`Fill`                               — ``size`` bytes produced
     by ``fn(out)`` writing into a uint8 view of the destination region
-    (lets e.g. BFP residual compaction target the final buffer directly).
+    (lets e.g. BFP residual compaction, or a copy from the card, target the
+    final buffer directly).
 
 ``join`` allocates the result with ``PyBytes_FromStringAndSize(NULL, n)``
 and fills it in place through a NumPy view — the only way in CPython to
@@ -33,7 +34,7 @@ from typing import Callable, List, NamedTuple, Union
 
 import numpy as np
 
-from .trace import NO_SPAN, span
+from .trace import NO_SPAN, span, to_host_into
 
 # parts write disjoint destination regions, so assembly parallelizes
 # trivially; numpy block copies release the GIL. 0/1 disables (default on
@@ -45,13 +46,29 @@ _MIN_PARALLEL_BYTES = 8 << 20
 
 class Fill(NamedTuple):
     """A deferred region: ``fn`` writes exactly ``size`` bytes into the
-    uint8 destination view it is handed."""
+    uint8 destination view it is handed. ``stage``, where given, names the
+    span (``utils/trace.py``) that a run of such Fills is written in."""
 
     size: int
     fn: Callable[[np.ndarray], None]
+    stage: str = ""
 
 
 Part = Union[bytes, bytearray, memoryview, np.ndarray, Fill]
+
+
+def device_fill(t) -> Fill:
+    """A Fill of contiguous tensor ``t``'s bytes, copied from its device
+    straight into the destination (``trace.to_host_into``). The copy is
+    ordered on the CUDA stream current where the Fill is made, the one
+    that wrote ``t``: ``join``'s pool threads run on the default stream."""
+    import torch
+
+    stream = (torch.cuda.current_stream(t.device)
+              if t.device.type == "cuda" else None)
+    return Fill(t.numel() * t.element_size(),
+                lambda d: to_host_into(t, d, stream))
+
 
 try:  # CPython fast path
     _new_bytes = ctypes.pythonapi.PyBytes_FromStringAndSize
@@ -110,8 +127,8 @@ def join_into(out: np.ndarray, parts, threads: int | None = None) -> int:
     total byte count written. Parts target disjoint regions, so big
     streams are written by a thread pool when ``threads`` (default: the
     MGARD_TPU_SERIALIZE_THREADS env knob, capped at 4) allows. On one
-    thread each run of consecutive Fill parts (BFP's residual compaction)
-    is one ``codec.bfp_compact`` span."""
+    thread each run of consecutive Fill parts of one ``stage`` (BFP's host
+    residual compaction: ``codec.bfp_compact``) is one span of it."""
     parts = list(parts)  # one-shot iterators are walked twice below
     offs, o = [], 0
     for p in parts:
@@ -128,10 +145,11 @@ def join_into(out: np.ndarray, parts, threads: int | None = None) -> int:
                 zip(offs, parts),
             ))
         return o
-    runs = itertools.groupby(zip(offs, parts),
-                             key=lambda t: isinstance(t[1], Fill))
-    for is_fill, run in runs:
-        with span("codec.bfp_compact") if is_fill else NO_SPAN:
+    runs = itertools.groupby(
+        zip(offs, parts),
+        key=lambda t: t[1].stage if isinstance(t[1], Fill) else "")
+    for stage, run in runs:
+        with span(stage) if stage else NO_SPAN:
             for off, p in run:
                 _write_part(out[off : off + part_nbytes(p)], p)
     return o

@@ -116,6 +116,23 @@ def to_host(t):
     return h.numpy()
 
 
+def to_host_into(t, dst, stream=None) -> None:
+    """Copy the bytes of contiguous tensor ``t`` into the host uint8 array
+    ``dst`` (of their size; any alignment), e.g. a region of a stream being
+    assembled. A device tensor is copied in a ``copy.dtoh`` span and
+    counted, like ``to_host``, ordered on ``stream`` (a torch CUDA stream;
+    default the current one): a copy made on another thread than the work
+    that wrote ``t`` passes that work's stream."""
+    src = t.reshape(-1).view(torch.uint8)
+    if t.device.type == "cpu":
+        torch.from_numpy(dst).copy_(src)
+        return
+    with span("copy.dtoh"), torch.cuda.stream(stream):
+        torch.from_numpy(dst).copy_(src)
+    count("copy.dtoh.calls")
+    count("copy.dtoh.bytes", dst.nbytes)
+
+
 def to_device(a, device):
     """Host data ``a`` (a NumPy array or a CPU tensor) as a tensor on
     ``device``: a copy in a ``copy.htod`` span, counted, for a device other

@@ -50,6 +50,13 @@ import gc
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card and skips without one (the "
+        "port's GPU tests; run on the GPU host with python3 -m pytest "
+        "--noconftest -m card tests/test_torch_bfp_card.py)")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _release_jit_mappings_per_module():
     yield
