@@ -91,6 +91,7 @@ from .ops import hybrid as Hy, quantize as Q
 from .ops.refactor import (
     decompose,
     decompose_single,
+    operator_bytes,
     recompose,
     recompose_single,
 )
@@ -174,21 +175,41 @@ def calculate_norm(v, s: float, normalize: bool) -> float:
     return n
 
 
+def _count_raw(hier, orthogonal: bool, single_dim: bool,
+               inverse: bool) -> None:
+    """The counters of one raw section's transform and quantizer."""
+    count("transform.levels", hier.l_target)
+    count("transform.ops_bytes",
+          0 if single_dim else operator_bytes(hier, orthogonal, inverse))
+    count("quantize.symbols", hier.total_num_elems)
+    if hier.dtype == np.float64:
+        count("raw.f64")
+
+
 def _compress_core_sym(v, quantizers, hier, orthogonal: bool, s_inf: bool,
                        single_dim: bool = False, step_mult=None):
     """Raw-symbol compress core: transform, then levelwise quantization to
     int32 symbols (no outlier capture, no dictionary shift)."""
-    dec = (decompose_single if single_dim else decompose)(v, hier, orthogonal)
-    return Q.quantize_symbols(dec, hier, quantizers, s_inf,
-                              step_mult=step_mult)
+    with span("kernel.decompose"):
+        dec = (decompose_single if single_dim else decompose)(v, hier,
+                                                              orthogonal)
+    with span("kernel.quantize"):
+        sym = Q.quantize_symbols(dec, hier, quantizers, s_inf,
+                                 step_mult=step_mult)
+    _count_raw(hier, orthogonal, single_dim, False)
+    return sym
 
 
 def _decompress_core_sym(sym, quantizers, hier, orthogonal: bool, s_inf: bool,
                          single_dim: bool = False, step_mult=None):
-    dec = Q.dequantize_symbols(sym, hier, quantizers, s_inf,
-                               step_mult=step_mult)
-    return (recompose_single if single_dim else recompose)(dec, hier,
-                                                           orthogonal)
+    with span("kernel.dequantize"):
+        dec = Q.dequantize_symbols(sym, hier, quantizers, s_inf,
+                                   step_mult=step_mult)
+    with span("kernel.recompose"):
+        out = (recompose_single if single_dim else recompose)(dec, hier,
+                                                              orthogonal)
+    _count_raw(hier, orthogonal, single_dim, True)
+    return out
 
 
 def _hybrid_quantizer(abs_tol: float, l_total: int) -> float:
@@ -760,24 +781,26 @@ def _compress(data, tol: float, s: float, mode: error_bound_type,
         # Global norm (REL): max / sum of squares over subdomains
         norm = 0.0
         if mode == error_bound_type.REL:
-            if S == 1:
-                norm = calculate_norm(v, s, config.normalize_coordinates)
-            else:
-                acc = 0.0
-                for i in range(S):
-                    sub = v[dd.subdomain_slices(i)]
-                    if s_inf:
-                        acc = max(acc, float(_norm_kernel(sub, True, False)))
-                    else:
-                        acc += float(_norm_kernel(sub, False, False)) ** 2
-                if s_inf:
-                    norm = acc
-                elif config.normalize_coordinates:
-                    norm = math.sqrt(acc / int(np.prod(shape)))
+            with span("api.norm"):
+                if S == 1:
+                    norm = calculate_norm(v, s, config.normalize_coordinates)
                 else:
-                    norm = math.sqrt(acc)
-                if norm == 0.0:
-                    norm = float(np.finfo(np_dt).eps)
+                    acc = 0.0
+                    for i in range(S):
+                        sub = v[dd.subdomain_slices(i)]
+                        if s_inf:
+                            acc = max(acc,
+                                      float(_norm_kernel(sub, True, False)))
+                        else:
+                            acc += float(_norm_kernel(sub, False, False)) ** 2
+                    if s_inf:
+                        norm = acc
+                    elif config.normalize_coordinates:
+                        norm = math.sqrt(acc / int(np.prod(shape)))
+                    else:
+                        norm = math.sqrt(acc)
+                    if norm == 0.0:
+                        norm = float(np.finfo(np_dt).eps)
         local_tol = calc_local_abs_tol(mode, norm, tol, s, S)
 
         coords_list = ([np.asarray(c, np.float64) for c in coords]
@@ -1075,7 +1098,8 @@ def compress_roi(data, tol: float, roi_mask=None, roi_factor: float = 16.0,
             raise ValueError("roi_mask shape must match data shape")
         norm = 0.0
         if mode == error_bound_type.REL:
-            norm = calculate_norm(v, s, config.normalize_coordinates)
+            with span("api.norm"):
+                norm = calculate_norm(v, s, config.normalize_coordinates)
         quantizers = hier.quantizers(tol, s, norm, mode, config.decomposition,
                                      orthogonal)
         mult = _roi_mult(roi_map_nested(mask, hier), roi_factor)

@@ -170,6 +170,16 @@ def _level_ops(hier: Hierarchy, l: int, orthogonal: bool, inverse: bool):
     return ops
 
 
+def operator_bytes(hier: Hierarchy, orthogonal: bool, inverse: bool) -> int:
+    """Bytes of the dense operators a full ``decompose`` (``recompose``
+    with ``inverse``) of ``hier`` puts on its device (``_device_ops``); 0
+    on the slice path."""
+    if not _use_fast(hier):
+        return 0
+    return sum(A.nbytes for l in range(1, hier.l_target + 1)
+               for _, A in _level_ops(hier, l, orthogonal, inverse))
+
+
 def _device_ops(hier: Hierarchy, levels, orthogonal: bool, inverse: bool,
                 device) -> dict:
     """{level: {(name, axis): matrix}} of a transform over ``levels`` on

@@ -13,6 +13,7 @@ and CUDA activities), each call inside the harness's ``bench.write`` /
   innermost open ``mgard.*`` span on the caller's thread belongs to each
   layer (``api``, ``codec``, ``copy``, ``kernel``) or to none
   (``outside``), in %: each layer's self time;
+- ``span_share``: the same split by the innermost span itself, in %;
 - ``idle_by_span``: device-idle seconds inside the calls by the innermost
   open span, beside the device-idle seconds of the harness's
   ``device_idle.*`` reading (``bench_torch/devtrace.py``);
@@ -122,6 +123,20 @@ def layer_share(events, kind: str, layer) -> float | None:
     own = sum(t1 - t0 for _, ss in segs for t0, t1, n in ss
               if _layer(n) == layer)
     return 100.0 * own / wall
+
+
+def span_share(events, kind: str) -> dict:
+    """Share of the ``kind`` calls' wall time whose innermost open span on
+    the caller's thread is each span ("(outside)" where none is open), in
+    %: each span's self time, largest first."""
+    segs = call_segments(events, kind)
+    wall = sum(b - a for (_, a, b), _ in segs)
+    tot = collections.Counter()
+    for _, ss in segs:
+        for t0, t1, name in ss:
+            tot[name[len("mgard."):] if name else "(outside)"] += t1 - t0
+    return ({n: 100.0 * v / wall for n, v in tot.most_common()}
+            if wall > 0 else {})
 
 
 def device_busy(events):
@@ -344,6 +359,7 @@ def run_cell(name, seed, seconds, device, size):
             "calls": len(cs), "wall_s": wall_s,
             "host_s_per_call": [c["seconds"] for c in cs][:3],
             "layer_share": shares,
+            "span_share": dict(list(span_share(events, kind).items())[:15]),
             "device_idle_s": (None if idle is None
                               else idle / 100.0 * wall_s),
             "idle_by_span_s": sum(ibs.values()) if ibs else None,

@@ -59,12 +59,19 @@ PARENTS = {
     "codec.plan": {"api.mdr_request"},
     "kernel.mdr_recompose": {"api.mdr_reconstruct"},
     "codec.plane_decode": {"api.mdr_reconstruct"},
+    "api.norm": {"api.compress"},
+    "kernel.decompose": {"api.compress"},
+    "kernel.quantize": {"api.compress"},
+    "kernel.dequantize": {"api.decompress"},
+    "kernel.recompose": {"api.decompress"},
 }
 FLAG1_SPANS = {"api.compress", "api.decompress", "api.metadata", "api.join",
                "codec.bfp_compact", "kernel.front", "kernel.remainder",
                "codec.lossless", "kernel.bfp_encode", "kernel.bfp_decode",
                "codec.bfp_plan", "codec.choose_K", "codec.bfp_blob",
                "codec.bfp_parse", "codec.bfp_expand"}
+RAW_SPANS = {"api.norm", "kernel.decompose", "kernel.quantize",
+             "kernel.dequantize", "kernel.recompose"}
 MDR_SPANS = {"api.mdr_refactor", "api.mdr_request", "api.mdr_reconstruct",
              "kernel.mdr_decompose", "codec.plane_encode", "codec.plan",
              "kernel.mdr_recompose", "codec.plane_decode"}
@@ -176,6 +183,51 @@ def test_flag0_spans_at_64cubed(tmp_path):
     seen = _check_nesting(events, ("write", "read"))
     assert {"api.compress", "api.decompress", "kernel.front",
             "kernel.remainder", "codec.lossless", "api.join"} <= seen
+
+
+def test_raw_path_spans_and_counters(tmp_path):
+    """A float64 REL stream at s = 0 (the raw MultiDim path with the L2
+    correction): the five raw-path spans in their calls, and per call the
+    levels, operator bytes, symbols and float64 sections counted."""
+    shape = (33, 20, 9)
+    v = torch.from_numpy(_field(shape).astype(np.float64))
+    hier = M.get_hierarchy(shape, np.float64)
+    box = {}
+
+    def write():
+        box["dw"] = _delta(lambda: box.update(blob=M.compress(
+            v, 1e-3, 0.0, M.error_bound_type.REL, device="cpu")[0]))
+
+    def read():
+        box["dr"] = _delta(lambda: M.decompress(box["blob"], device="cpu"))
+
+    events = _traced_events(tmp_path, [("write", write), ("read", read)])
+    seen = _check_nesting(events, ("write", "read"))
+    assert RAW_SPANS <= seen
+    for kind, inverse in (("dw", False), ("dr", True)):
+        d = box[kind]
+        assert d["transform.levels"] == hier.l_target
+        assert d["transform.ops_bytes"] == TR.operator_bytes(
+            hier, True, inverse) > 0
+        assert d["quantize.symbols"] == v.numel() and d["raw.f64"] == 1
+
+
+def test_hybrid_inf_opens_no_raw_span(tmp_path):
+    """A Hybrid s = inf round trip (flag 0 at 64^3: its remainder runs the
+    dense transform) opens none of the raw path's spans, so its transform
+    stays in ``kernel.remainder``, and moves none of its counters."""
+    v = torch.from_numpy(_field((64, 64, 64)))
+    box = {}
+
+    def run():
+        box["d"] = _delta(lambda: M.decompress(
+            M.compress(v, 1e-3, device="cpu")[0], device="cpu"))
+
+    events = _traced_events(tmp_path, [("write", run)])
+    seen = _check_nesting(events, ("write",))
+    assert "kernel.remainder" in seen and not RAW_SPANS & seen
+    assert not any(k.startswith(("transform.", "quantize.", "raw."))
+                   for k in box["d"])
 
 
 def test_mdr_spans_at_48cubed(tmp_path):
@@ -376,6 +428,13 @@ def test_layer_share_is_self_time_of_the_innermost_span():
     assert sum(share.values()) == pytest.approx(100.0)
     assert TL.layer_share(EVENTS, "read", "api") == pytest.approx(80.0)
     assert TL.layer_share(EVENTS, "none", "api") is None
+
+
+def test_span_share_is_self_time_by_span():
+    assert TL.span_share(EVENTS, "write") == pytest.approx({
+        "api.compress": 30.0, "kernel.front": 20.0, "codec.bfp_blob": 20.0,
+        "(outside)": 20.0, "copy.dtoh": 10.0})
+    assert TL.span_share(EVENTS, "none") == {}
 
 
 def test_idle_by_span_sums_to_the_calls_idle_time():
