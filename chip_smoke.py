@@ -39,7 +39,14 @@ Phases (each prints a line; any failure exits nonzero before the result):
      timed, beside PyTorch's int32 <-> uint8 casts of the 512^3 stream as
      yardsticks, with their ptxas lines), on three small streams, and
      refusing views one element off 16-byte alignment; K5 also timed over
-     the 99 bfx planes of one 384^3 MDRefactor;
+     the 99 bfx planes of one 384^3 MDRefactor; K14 (the MultiDim level
+     kernel of a 3D field) against its plain version (the dense
+     operators) on small shapes in both types, bases and kinds of
+     coordinates, on the cells' float32 inputs (the main path's remainder
+     as one compress and decompress hand it over, MDR's 384^3 field in
+     MDR's basis), and at 500^3 float64 in the L2 basis, timed whole and
+     at its finest level beside the level steps' byte floor, the plain
+     version and a clone of the field, with its ptxas lines;
   4. the main path: compress + decompress a 512^3 float32 field at
      tol=1e-3 (s=inf, ABS, default Config) through the public API, with the
      launch counters reset just before and read just after (K1-K4, K12,
@@ -96,7 +103,8 @@ Phases (each prints a line; any failure exits nonzero before the result):
      header, K1-K4 launched, the bound held on the double data); and the
      field scaled by 0.01 at tol=1e-9: native float64, not demoted;
  18. compress_roi at 128^3 with an explicit mask and with roi_mask=None:
-     error <= tol/16 inside the mask, <= tol outside;
+     error <= tol/16 inside the mask, <= tol outside, and the launches of
+     each call (K2/K3, K12/K13, and K14 a level);
  19. one small stream of each new kind written on the card and decoded on
      the CPU, and the reverse;
  20. streams of the reference libraries (formats/ref_stream.py,
@@ -114,8 +122,8 @@ Phases (each prints a line; any failure exits nonzero before the result):
      read back through MDRXArchive on the card at tol 1e-2 / 1e-3 / 1e-4,
      each bound held, the bytes fetched printed.
 The second-to-last line is a JSON summary of the kernels: launches from the
-path each kernel belongs to (K1-K4 phase 4, K5-K8 phase 5, K9 phase 8,
-K10/K11 phase 12, the probe variants phase 13's counted run),
+path each kernel belongs to (K1-K4 and K14 phase 4, K5-K8 phase 5, K9
+phase 8, K10/K11 phase 12, the probe variants phase 13's counted run),
 times from phase 3 (probes: phase 13; K9 also per level of one
 MDRefactor), and each kernel's bound: the larger of the bytes it
 must move over the card's 3.35 TB/s and its operations over 67 TOP/s (the
@@ -177,6 +185,14 @@ REPO_KERNELS = {
                        "mgard_tpu/ops/hybrid.py:939"),
     "hybrid_unpack_v3": ("mgard_tpu_torch/csrc/hybrid_v3.cu",
                          "mgard_tpu/ops/hybrid.py:1072"),
+    # K14 replaces no TPU kernel: the dense operators (XLA matmuls in the
+    # JAX package, torch.tensordot in the port)
+    "multidim_decompose": ("mgard_tpu_torch/csrc/multidim.cu",
+                           "mgard_tpu_torch/ops/refactor.py::"
+                           "decompose_level_fast (dense operators)"),
+    "multidim_recompose": ("mgard_tpu_torch/csrc/multidim.cu",
+                           "mgard_tpu_torch/ops/refactor.py::"
+                           "recompose_level_fast (dense operators)"),
 }
 # K10/K11 ms at 512^3 in their three-kernel design (a shared-tile walk, a
 # u16 scratch payload, warp-ballot packing), measured just before the
@@ -200,7 +216,8 @@ MDR_PLANE = 24
 # in their warp-ballot design (PERF.md's kernel table)
 K2_K3_BEFORE = (1.3725, 1.3140)
 MAIN_PATH = ("hybrid_fwd_v2", "bfp_encode", "bfp_compact", "bfp_expand",
-             "bfp_decode", "hybrid_inv_v2")
+             "bfp_decode", "hybrid_inv_v2", "multidim_decompose",
+             "multidim_recompose")
 BFX_PATH = ("hybrid_fwd", "bfx_encode", "bfx_decode", "hybrid_inv")
 SMALL_MAIN_PATH = MAIN_PATH + ("bfx_encode", "bfx_decode")
 FUSED_PATH = ("hybrid_pack_v3", "hybrid_unpack_v3")
@@ -524,6 +541,201 @@ def probe_phase(dev, kernels, rows, path_launches):
           f"{ {k: v for k, v in counts.items() if k.startswith('probe_')} }")
 
 
+def k14_level_elems(nf, orthogonal):
+    """Elements K14's passes move at one level step of fine shape nf, each
+    pass's inputs read once and outputs written once (both directions): the
+    residual (interpolation) pass reads and writes the level box; the L2
+    correction restricts along axes 0, 1, 2 and sweeps the coarse box
+    along each axis, the last sweep reading and writing the coarse
+    values. This design's traffic, not the level step's floor."""
+    nc = [n // 2 + 1 for n in nf]
+    box, cbox = math.prod(nf), math.prod(nc)
+    elems = 2 * box
+    if orthogonal:
+        t1, t2 = nc[0] * nf[1] * nf[2], nc[0] * nc[1] * nf[2]
+        elems += (box + t1) + (t1 + t2) + (t2 + cbox) + 7 * cbox
+    return elems
+
+
+def k14_floor_elems(nf, orthogonal):
+    """Elements one level step of fine shape nf has to move whatever its
+    design: the level box read once and written once (residuals to their
+    nested-box places, coarse values on to the next level), and in the L2
+    basis the coarse box's correction read and written once more."""
+    cbox = math.prod(n // 2 + 1 for n in nf)
+    return 2 * math.prod(nf) + (2 * cbox if orthogonal else 0)
+
+
+def k14_phase(dev, kernels, rows, v_main):
+    """Phase 3 K14: the MultiDim level kernel of a 3D field against its
+    plain version (refactor.decompose_plain / recompose_plain, the dense
+    operators) on the card: on small shapes, then on the inputs the cells
+    give it (the main path's remainder, taken from one compress and
+    decompress of the main field ``v_main``, and MDR's 384^3 float32
+    field in MDR's basis), then at 500^3 float64 in the L2 basis, timed
+    against the level steps' byte floor."""
+    import mgard_tpu_torch as M
+    from mgard_tpu_torch import highlevel as HL
+    from mgard_tpu_torch.hierarchy import Hierarchy, get_hierarchy
+    from mgard_tpu_torch.lossless import bfp as B
+    from mgard_tpu_torch.ops import multidim as MD, refactor as R
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    limit = {np.float64: 1e-13, np.float32: 1e-6}
+    worst = {np.float64: 0.0, np.float32: 0.0}
+    gen = np.random.default_rng(5)
+    shapes = ((9, 17, 5), (18, 10, 12), (3, 4, 500), (500, 3, 4),
+              (4, 500, 3), (3, 3, 3), (33, 18, 40), (65, 130, 257))
+    for shape in shapes:
+        for dt in (np.float64, np.float32):
+            for uniform in (True, False):
+                coords = None if uniform else [
+                    np.cumsum(gen.uniform(0.3, 1.7, n)) for n in shape]
+                hier = Hierarchy(shape, dt, coords)
+                v = torch.from_numpy(gen.standard_normal(shape).astype(dt)
+                                     ).to(dev)
+                for orth in (True, False):
+                    d = R.decompose(v, hier, orth)
+                    worst[dt] = max(
+                        worst[dt], rel(d, R.decompose_plain(v, hier, orth)),
+                        rel(R.recompose(v, hier, orth),
+                            R.recompose_plain(v, hier, orth)),
+                        rel(R.recompose(d, hier, orth), v))
+    if any(worst[dt] > limit[dt] for dt in worst):
+        raise AssertionError(f"K14 against the dense operators: worst "
+                             f"relative error {worst}, limits {limit}")
+    phase(f"phase 3 small K14: {len(shapes)} shapes x float64/float32 x "
+          f"uniform/non-uniform x L2/hierarchical basis, decompose, "
+          f"recompose and the round trip against the dense operators: "
+          f"worst relative error float64 {worst[np.float64]:.3e}, float32 "
+          f"{worst[np.float32]:.3e} (limits 1e-13, 1e-6)")
+
+    # the main path's own transform inputs: highlevel's decompose and
+    # recompose calls of one Hybrid s=inf round trip, kept as they come
+    seen = []
+
+    def keeping(name, fn):
+        def call(x, hier, orthogonal=False):
+            seen.append((name, x.clone(), hier, orthogonal))
+            return fn(x, hier, orthogonal=orthogonal)
+        return call
+
+    real = HL.decompose, HL.recompose
+    HL.decompose = keeping("decompose", real[0])
+    HL.recompose = keeping("recompose", real[1])
+    try:
+        B._K_CACHE.clear()
+        blob, st = M.compress(v_main, TOL, s=math.inf,
+                              mode=M.error_bound_type.ABS)
+        M.decompress(blob, device=dev)
+    finally:
+        HL.decompose, HL.recompose = real
+    B._K_CACHE.clear()
+    if sorted(c[0] for c in seen) != ["decompose", "recompose"] or any(
+            c[2].D != 3 or c[3] or c[1].dtype != torch.float32
+            or c[1].device != v_main.device for c in seen):
+        raise AssertionError(f"main path transform calls: "
+                             f"{[(c[0], c[2].shape, c[3]) for c in seen]}")
+    cfg = M.Config()
+    orth_mdr = bool(cfg.mdr_orthogonal_basis)
+    v384 = bench_field(N_MDR, dev)
+    h384 = get_hierarchy((N_MDR,) * 3, np.float32, None, cfg)
+    seen += [("decompose", v384, h384, orth_mdr),
+             ("recompose", R.decompose_plain(v384, h384, orth_mdr), h384,
+              orth_mdr)]
+    cell_errs = []
+    for name, x, hier, orth in seen:
+        mine, plain = ((R.decompose, R.decompose_plain)
+                       if name == "decompose"
+                       else (R.recompose, R.recompose_plain))
+        cell_errs.append(rel(mine(x, hier, orth), plain(x, hier, orth)))
+    if max(cell_errs) > limit[np.float32]:
+        raise AssertionError(f"K14 on the cells' inputs: relative errors "
+                             f"{cell_errs} (main path decompose, recompose; "
+                             f"MDR decompose, recompose), limit 1e-6")
+    phase(f"phase 3 K14 on the cells' float32 inputs against the dense "
+          f"operators: the {N_MAIN}^3 main path's remainder "
+          f"{tuple(seen[0][2].shape)} ({seen[0][2].l_target} levels, "
+          f"hierarchical basis, as one compress and decompress hand it "
+          f"over) decompose {cell_errs[0]:.3e}, recompose "
+          f"{cell_errs[1]:.3e}; MDR's {N_MDR}^3 field "
+          f"({'L2' if orth_mdr else 'hierarchical'} basis, "
+          f"{h384.l_target} levels) decompose {cell_errs[2]:.3e}, "
+          f"recompose {cell_errs[3]:.3e} (limit 1e-6)")
+    del seen, v384, x
+
+    n = 500
+    hier = get_hierarchy((n, n, n), np.float64)
+    L = hier.l_target
+    x = torch.linspace(0, 1, n, dtype=torch.float64, device=dev)
+    v = (torch.sin(5 * x)[:, None, None] * torch.cos(3 * x)[None, :, None]
+         + x[None, None, :] ** 2 + 1e-3 * torch.sin(97 * x)[None, :, None])
+    kernels.reset_launches()
+    dec = R.decompose(v, hier, True)
+    back = R.recompose(dec, hier, True)
+    launches = {k: kernels.LAUNCHES[k] for k in ("multidim_decompose",
+                                                 "multidim_recompose")}
+    if launches != {"multidim_decompose": L, "multidim_recompose": L}:
+        raise AssertionError(f"K14 at {n}^3: launches {launches}, want {L} "
+                             f"each way")
+    e_dec = rel(dec, R.decompose_plain(v, hier, True))
+    e_rec = rel(back, R.recompose_plain(dec, hier, True))
+    e_rt = rel(back, v)
+    if max(e_dec, e_rec, e_rt) > 1e-13:
+        raise AssertionError(f"K14 at {n}^3 float64: relative error "
+                             f"decompose {e_dec}, recompose {e_rec}, round "
+                             f"trip {e_rt}")
+    ms_dec = time_ms(lambda: MD.decompose(v, hier, True), 10)
+    ms_rec = time_ms(lambda: MD.recompose(dec, hier, True), 10)
+    plain_dec = time_ms(lambda: R.decompose_plain(v, hier, True), 3)
+    plain_rec = time_ms(lambda: R.recompose_plain(dec, hier, True), 3)
+    clone_ms = time_ms(lambda: v.clone(), 10)
+    # the finest level alone, on the level loop's buffers
+    nf, nc = hier.level_shape[L], hier.level_shape[L - 1]
+    tabs = MD._tables(hier, dev)
+    scr = v.new_empty(MD.scratch_elems(hier))
+    out, cd = torch.empty_like(v), v.new_empty(math.prod(nc))
+    fin_dec = time_ms(lambda: MD.decompose_level(
+        v, out, cd, (nc[1] * nc[2], nc[2]), tabs[L - 1], scr, nf, True), 10)
+    dst = torch.empty_like(v)
+    fin_rec = time_ms(lambda: MD.recompose_level(
+        dec, cd, dst, tabs[L - 1], scr, nf, True), 10)
+    esz = v.element_size()
+    levels = [hier.level_shape[l] for l in range(1, L + 1)]
+    whole = sum(k14_floor_elems(s, True) for s in levels) * esz
+    finest = k14_floor_elems(nf, True) * esz
+    design = sum(k14_level_elems(s, True) for s in levels) * esz
+    b_whole, b_fin = bound(whole, 0)[0], bound(finest, 0)[0]
+    b_design = bound(design, 0)[0]
+    for k, ms, plain_ms in (("multidim_decompose", ms_dec, plain_dec),
+                            ("multidim_recompose", ms_rec, plain_rec)):
+        rows[k] = dict(max_rel_err=max(e_dec, e_rec), ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_whole, bound_by="bytes",
+                       library_ms=None,
+                       finest_ms=fin_dec if k == "multidim_decompose"
+                       else fin_rec, finest_bound_ms=b_fin,
+                       design_bytes=design)
+    phase(f"phase 3 K14 at {n}^3 float64, L2 basis, {L} levels: relative "
+          f"error against the dense operators decompose {e_dec:.3e}, "
+          f"recompose {e_rec:.3e}, round trip {e_rt:.3e}; decompose "
+          f"{ms_dec:.4f} ms, recompose {ms_rec:.4f} ms (bound {b_whole:.4f} "
+          f"ms: {whole} bytes, each level box read and written once and "
+          f"its coarse box once more for the correction; this design's "
+          f"passes move {design} bytes, {b_design:.4f} ms); finest level "
+          f"decompose {fin_dec:.4f} ms, recompose {fin_rec:.4f} ms (bound "
+          f"{b_fin:.4f} ms: {finest} bytes); dense operators "
+          f"{plain_dec:.4f} / {plain_rec:.4f} ms; a clone of the field "
+          f"{clone_ms:.4f} ms")
+    for line in ptxas_lines(kernels.BUILD_LOG, (
+            "resid_kernel", "interp_kernel", "restrict_kernel",
+            "thomas_kernel")):
+        phase("phase 3 K14 ptxas " + line)
+    del v, dec, back, out, cd, dst, scr
+    torch.cuda.empty_cache()
+
+
 def xgc5d(t=12, planes=8, nodes=96, nvx=33, nvy=33, seed=3):
     """The XGC-like 5D distribution of scripts/bench_5d.py: a Maxwellian
     in (vx, vy) with a slow modulation over time, plane and node, plus
@@ -738,6 +950,9 @@ def generic_phases(dev, M, kernels):
     box[32:96, 32:96, 32:96] = True
     auto = detect_roi(vr, get_hierarchy((nr,) * 3, np.float32))
     tol, factor = 1e-2, 16.0
+    # the transform of a 3D field on the card: K14, one launch a level
+    # (without a mask, detect_roi decomposes the field once more)
+    nlev = get_hierarchy((nr,) * 3, np.float32).l_target
     for what, arg, mask in (("explicit mask", box, box),
                             ("roi_mask=None", None, auto)):
         (blob, st), tc, lc, sec_c, rr = counted(
@@ -751,7 +966,9 @@ def generic_phases(dev, M, kernels):
                 or not e_in <= tol / factor or not e_out <= tol
                 or (sec_c, sec_d) != (1, 1) or rr > 1
                 or ln != {"bfp_encode": 1 + rr, "bfp_compact": 1,
-                          "bfp_decode": 1, "bfp_expand": 1}):
+                          "bfp_decode": 1, "bfp_expand": 1,
+                          "multidim_decompose": nlev * (1 + (arg is None)),
+                          "multidim_recompose": nlev}):
             raise AssertionError(f"phase 18 {what}: status {st}/{st2}, in-ROI "
                                  f"{e_in}, outside {e_out}, {sec_c} "
                                  f"pre-sorted sections packed ({rr} re-runs), "
@@ -1846,6 +2063,7 @@ def main():
                              f"planes")
     del v384, lvl, v2d, k9_out, dec384, lv, lv2, k9_planes, bfx_rows
     torch.cuda.empty_cache()
+    k14_phase(dev, kernels, rows, v)
 
     # -- 4. the main path ------------------------------------------------
     nbytes = v.numel() * 4
@@ -1888,6 +2106,14 @@ def main():
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing} ({launches_main})")
+    # the remainder's transform: K14, one launch a level each way a rep
+    rem_levels = get_hierarchy(Hy.remainder_shape(
+        Hy.pad_to8(v.shape), cfg.num_local_refactoring_level), np.float32,
+        None, cfg).l_target
+    if (launches_main["multidim_decompose"], launches_main[
+            "multidim_recompose"]) != (3 * rem_levels, 3 * rem_levels):
+        raise AssertionError(f"main path: K14 launches {launches_main}, "
+                             f"want {3 * rem_levels} each way")
     err = float((out - v).abs().max())
     if not (torch.isfinite(out).all() and tuple(out.shape) == tuple(v.shape)
             and err <= TOL):

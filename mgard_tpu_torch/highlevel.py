@@ -91,13 +91,12 @@ from .ops import hybrid as Hy, quantize as Q
 from .ops.refactor import (
     decompose,
     decompose_single,
-    operator_bytes,
     recompose,
     recompose_single,
 )
 from .utils.bytesink import join, parts_size
 from .utils.log import log
-from .utils.trace import count, span, to_device, to_host, traced
+from .utils.trace import count, group, span, to_device, to_host, traced
 
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
@@ -175,12 +174,16 @@ def calculate_norm(v, s: float, normalize: bool) -> float:
     return n
 
 
-def _count_raw(hier, orthogonal: bool, single_dim: bool,
-               inverse: bool) -> None:
+def _put_bytes() -> int:
+    """Bytes of operators or tables the transforms have put on a device so
+    far (``transform.put_bytes``, counted where they go up)."""
+    return group("transform").get("put_bytes", 0)
+
+
+def _count_raw(hier, ops_bytes: int) -> None:
     """The counters of one raw section's transform and quantizer."""
     count("transform.levels", hier.l_target)
-    count("transform.ops_bytes",
-          0 if single_dim else operator_bytes(hier, orthogonal, inverse))
+    count("transform.ops_bytes", ops_bytes)
     count("quantize.symbols", hier.total_num_elems)
     if hier.dtype == np.float64:
         count("raw.f64")
@@ -190,25 +193,27 @@ def _compress_core_sym(v, quantizers, hier, orthogonal: bool, s_inf: bool,
                        single_dim: bool = False, step_mult=None):
     """Raw-symbol compress core: transform, then levelwise quantization to
     int32 symbols (no outlier capture, no dictionary shift)."""
+    put = _put_bytes()
     with span("kernel.decompose"):
         dec = (decompose_single if single_dim else decompose)(v, hier,
                                                               orthogonal)
     with span("kernel.quantize"):
         sym = Q.quantize_symbols(dec, hier, quantizers, s_inf,
                                  step_mult=step_mult)
-    _count_raw(hier, orthogonal, single_dim, False)
+    _count_raw(hier, _put_bytes() - put)
     return sym
 
 
 def _decompress_core_sym(sym, quantizers, hier, orthogonal: bool, s_inf: bool,
                          single_dim: bool = False, step_mult=None):
+    put = _put_bytes()
     with span("kernel.dequantize"):
         dec = Q.dequantize_symbols(sym, hier, quantizers, s_inf,
                                    step_mult=step_mult)
     with span("kernel.recompose"):
         out = (recompose_single if single_dim else recompose)(dec, hier,
                                                               orthogonal)
-    _count_raw(hier, orthogonal, single_dim, True)
+    _count_raw(hier, _put_bytes() - put)
     return out
 
 

@@ -8,7 +8,8 @@ at the root of the checkout, named by a hash of the sources and flags, so a
 changed source builds anew and an unchanged one is reused.
 
 Each C entry point launches its kernel (for K2/K3 a short chain of
-kernels; for a probe the variant it is asked for) on the stream
+kernels; for K14 the passes of one level step; for a probe the variant it
+is asked for) on the stream
 it is given and returns ``cudaGetLastError()``; ``launch`` raises on a
 nonzero code and only then counts the launch in ``LAUNCHES`` (the ``launch``
 group of ``utils/trace.py``'s counters). The build and the load are the
@@ -70,6 +71,14 @@ _SIGNATURES = {
     "hybrid_pack_v3": [_P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # base, crl, resid, rem, q, out, X, Y, Z, nl, K, E, stream
     "hybrid_unpack_v3": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
+    # K14, one MultiDim level step of a 3D field:
+    # src, out, S0, S1, cd, C0, C1, tab, scr, n0, n1, n2, orthogonal, f64,
+    # stream
+    "multidim_decompose": [_P, _P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I,
+                           _I, _I, _P],
+    # dec, S0, S1, c, dst, tab, scr, n0, n1, n2, orthogonal, f64, stream
+    "multidim_recompose": [_P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P],
     # the layout probes P1-P3 (csrc/probes.cu), each with a variant number:
     # planes, woff, sb_off, out, NSB, E, W, total_rows, variant, stream
     "probe_dynwin": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

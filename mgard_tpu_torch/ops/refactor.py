@@ -2,11 +2,17 @@
 
 Port of ``mgard_tpu/ops/refactor.py``, float32 and float64, in the
 hierarchical basis and the L2-orthogonal one, on uniform and non-uniform
-grids (the hierarchy's tables carry the coordinates). Two routes compute
-the same linear map:
+grids (the hierarchy's tables carry the coordinates). Three routes
+compute the same linear map:
+
+- K14 (``ops/multidim.py``, ``csrc/multidim.cu``) for a 3D field on a
+  CUDA device, whatever its type, basis or coordinates: per level one
+  kernel call of O(n) stencils and Thomas sweeps on O(n) tables that stay
+  on the device. The two routes below are its plain versions;
 
 - the dense-operator path (``decompose_level_fast`` /
-  ``recompose_level_fast``) while no finest-level axis passes
+  ``recompose_level_fast``) for every other field while no finest-level
+  axis passes
   ``_FAST_MAX_AXIS``: per level one (nf x nf) interpolation matrix and one
   0/1 reorder matrix per axis, and for the orthogonal basis one (nc x nf)
   correction matrix per axis, each a ``torch.tensordot`` in the field's
@@ -25,6 +31,13 @@ The package sets float32 matmuls to full precision
 error budget. ``decompose_single`` / ``recompose_single`` are the SingleDim
 variant (one dimension coarsened at a time per level).
 
+``decompose`` and ``recompose`` count the level steps each route runs:
+``transform.kernel_levels`` (K14) and ``transform.dense_levels`` (the dense
+operators; the slice path counts neither). ``transform.put_bytes`` counts
+the operators or tables a transform puts on its device, where they go up:
+the dense operators every call, K14's tables on the first call per
+hierarchy and device.
+
 Output layout is the reference's nested-box ("reo") layout: after the full
 decomposition the level-l data occupies the leading box level_shape[l].
 """
@@ -37,8 +50,8 @@ import numpy as np
 import torch
 
 from ..hierarchy import Hierarchy
-from ..utils.trace import to_device_each
-from . import _be
+from ..utils.trace import count, to_device_each
+from . import _be, multidim
 from .axis import (
     mass_restrict_axis,
     merge_axis,
@@ -171,9 +184,9 @@ def _level_ops(hier: Hierarchy, l: int, orthogonal: bool, inverse: bool):
 
 
 def operator_bytes(hier: Hierarchy, orthogonal: bool, inverse: bool) -> int:
-    """Bytes of the dense operators a full ``decompose`` (``recompose``
-    with ``inverse``) of ``hier`` puts on its device (``_device_ops``); 0
-    on the slice path."""
+    """Bytes of the dense operators a full ``decompose_plain``
+    (``recompose_plain`` with ``inverse``) of ``hier`` puts on its device
+    (``_device_ops``); 0 on the slice path."""
     if not _use_fast(hier):
         return 0
     return sum(A.nbytes for l in range(1, hier.l_target + 1)
@@ -192,6 +205,13 @@ def _device_ops(hier: Hierarchy, levels, orthogonal: bool, inverse: bool,
                                                    device)):
         ops[l][k] = t
     return ops
+
+
+def _count_put(ops: dict) -> None:
+    """``transform.put_bytes`` of the operators a dense transform holds on
+    its device (on the CPU, the host matrices it runs on)."""
+    count("transform.put_bytes", sum(t.nbytes for d in ops.values()
+                                     for t in d.values()))
 
 
 def _correction_mm(resid, ops: dict, D: int):
@@ -383,10 +403,21 @@ def _fast_step(step, ops):
 def decompose(v, hier: Hierarchy, orthogonal: bool = False):
     """Full multilevel decomposition, finest to coarsest, nested-box output."""
     _check(v, hier)
+    if multidim.takes(hier, v.device):
+        count("transform.kernel_levels", hier.l_target)
+        return multidim.decompose(v, hier, orthogonal)
+    return decompose_plain(v, hier, orthogonal)
+
+
+def decompose_plain(v, hier: Hierarchy, orthogonal: bool = False):
+    """K14's plain version, on v's device: the dense operators, or the
+    slice path for long axes."""
     levels = range(hier.l_target, 0, -1)
     if not _use_fast(hier):
         return _levels(v, hier, levels, decompose_level, orthogonal)
+    count("transform.dense_levels", hier.l_target)
     ops = _device_ops(hier, levels, orthogonal, False, v.device)
+    _count_put(ops)
     return _levels(v, hier, levels, _fast_step(decompose_level_fast, ops),
                    orthogonal)
 
@@ -394,10 +425,20 @@ def decompose(v, hier: Hierarchy, orthogonal: bool = False):
 def recompose(v, hier: Hierarchy, orthogonal: bool = False):
     """Full multilevel recomposition, coarsest to finest."""
     _check(v, hier)
+    if multidim.takes(hier, v.device):
+        count("transform.kernel_levels", hier.l_target)
+        return multidim.recompose(v, hier, orthogonal)
+    return recompose_plain(v, hier, orthogonal)
+
+
+def recompose_plain(v, hier: Hierarchy, orthogonal: bool = False):
+    """Inverse of ``decompose_plain``, on v's device."""
     levels = range(1, hier.l_target + 1)
     if not _use_fast(hier):
         return _levels(v, hier, levels, recompose_level, orthogonal)
+    count("transform.dense_levels", hier.l_target)
     ops = _device_ops(hier, levels, orthogonal, True, v.device)
+    _count_put(ops)
     return _levels(v, hier, levels, _fast_step(recompose_level_fast, ops),
                    orthogonal)
 

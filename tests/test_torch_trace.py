@@ -18,7 +18,8 @@ import torch
 
 import mgard_tpu_torch as M
 from mgard_tpu_torch import kernels, mdr
-from mgard_tpu_torch.ops import refactor as TR
+from mgard_tpu_torch.hierarchy import Hierarchy
+from mgard_tpu_torch.ops import multidim as MD, refactor as TR
 from mgard_tpu_torch.utils import trace
 from test_torch_highlevel import (  # noqa: F401 (fixtures)
     SHAPE, _field, bfp_small, fresh_k_caches)
@@ -188,7 +189,8 @@ def test_flag0_spans_at_64cubed(tmp_path):
 def test_raw_path_spans_and_counters(tmp_path):
     """A float64 REL stream at s = 0 (the raw MultiDim path with the L2
     correction): the five raw-path spans in their calls, and per call the
-    levels, operator bytes, symbols and float64 sections counted."""
+    levels, operator bytes, symbols and float64 sections counted; on the
+    CPU every level step runs the dense operators, none K14."""
     shape = (33, 20, 9)
     v = torch.from_numpy(_field(shape).astype(np.float64))
     hier = M.get_hierarchy(shape, np.float64)
@@ -207,6 +209,8 @@ def test_raw_path_spans_and_counters(tmp_path):
     for kind, inverse in (("dw", False), ("dr", True)):
         d = box[kind]
         assert d["transform.levels"] == hier.l_target
+        assert d["transform.dense_levels"] == hier.l_target
+        assert "transform.kernel_levels" not in d
         assert d["transform.ops_bytes"] == TR.operator_bytes(
             hier, True, inverse) > 0
         assert d["quantize.symbols"] == v.numel() and d["raw.f64"] == 1
@@ -215,7 +219,9 @@ def test_raw_path_spans_and_counters(tmp_path):
 def test_hybrid_inf_opens_no_raw_span(tmp_path):
     """A Hybrid s = inf round trip (flag 0 at 64^3: its remainder runs the
     dense transform) opens none of the raw path's spans, so its transform
-    stays in ``kernel.remainder``, and moves none of its counters."""
+    stays in ``kernel.remainder``, and moves none of its counters; the
+    transform counts the remainder's dense level steps and the operators
+    it puts on the device, each way."""
     v = torch.from_numpy(_field((64, 64, 64)))
     box = {}
 
@@ -226,8 +232,11 @@ def test_hybrid_inf_opens_no_raw_span(tmp_path):
     events = _traced_events(tmp_path, [("write", run)])
     seen = _check_nesting(events, ("write",))
     assert "kernel.remainder" in seen and not RAW_SPANS & seen
-    assert not any(k.startswith(("transform.", "quantize.", "raw."))
-                   for k in box["d"])
+    assert not any(k.startswith(("transform.levels", "transform.ops_bytes",
+                                 "quantize.", "raw.")) for k in box["d"])
+    assert box["d"]["transform.dense_levels"] > 0
+    assert box["d"]["transform.put_bytes"] > 0
+    assert "transform.kernel_levels" not in box["d"]
 
 
 def test_mdr_spans_at_48cubed(tmp_path):
@@ -373,6 +382,25 @@ def test_transform_operators_come_up_in_one_span(tmp_path):
                 assert box["ops"][l][k].device.type == "meta"
                 assert tuple(box["ops"][l][k].shape) == A.shape
                 np.testing.assert_array_equal(cpu[l][k].numpy(), A)
+
+
+def test_k14_tables_come_up_once_per_device():
+    """K14's tables go to a device in one ``copy.htod`` on the first
+    transform there and never after (the meta device stands in for the
+    card), counted as they go up in ``transform.put_bytes``; the dense path
+    counts its operators there on every call."""
+    hier = Hierarchy((33, 18, 9), np.float64)
+    size = sum(MD.level_table(hier, l).nbytes
+               for l in range(1, hier.l_target + 1))
+    d = _delta(lambda: MD._tables(hier, "meta"))
+    assert d == {"copy.htod.calls": 1, "copy.htod.bytes": size,
+                 "transform.put_bytes": size} and size > 0
+    assert not _delta(lambda: MD._tables(hier, torch.device("meta")))
+    v = torch.from_numpy(_field(hier.shape).astype(np.float64))
+    for inverse, fn in ((False, TR.decompose), (True, TR.recompose)):
+        d = _delta(lambda: fn(v, hier, True))
+        assert d["transform.put_bytes"] == TR.operator_bytes(
+            hier, True, inverse) > size
 
 
 def test_log_time_lines_come_from_the_api_spans(capsys):
