@@ -31,8 +31,9 @@ Phases (each prints a line; any failure exits nonzero before the result):
      their ptxas lines), on the edge cases of bfp.BAND_CASES, and on wide
      rows at sb=256; rows one element off 16-byte alignment are refused;
      K12/K13 (BFP's wire compaction) on the cf stream: the blob and band
-     rows equal to the host path's, each kernel to its plain version,
-     timed beside a copy of the wire words, with their ptxas lines;
+     rows equal to those of the same tensors on the CPU (the plain
+     versions), each kernel to its plain version, timed beside a copy of
+     the wire words, with their ptxas lines;
      K5/K6 (the BFX codec) on the 512^3 Hybrid+BFX stream, on 8192
      symbols at sb=256/align=1 (a small remainder), on an MDR plane of the
      384^3 finest level and on a stream of 32-bit blocks at sb=4096 (each
@@ -47,11 +48,12 @@ Phases (each prints a line; any failure exits nonzero before the result):
      MDR's basis), and at 500^3 float64 in the L2 basis, timed whole and
      at its finest level beside the level steps' byte floor, the plain
      version and a clone of the field, with its ptxas lines;
-  4. the main path: compress + decompress a 512^3 float32 field at
-     tol=1e-3 (s=inf, ABS, default Config) through the public API, with the
-     launch counters reset just before and read just after (K1-K4, K12,
-     K13): each BFP blob (cf stream and remainder) compacted and expanded
-     on the card, none on the host (the bfp.wire.* counters);
+  4. the main path: one timed compress + decompress of a 512^3 float32
+     field at tol=1e-3 (s=inf, ABS, default Config) through the public API
+     (nyx512.bfp.roundtrip measures its speed), with the launch counters
+     reset just before and read just after (K1-K4, K12, K13): each BFP
+     blob (cf stream and remainder) compacted and expanded on the card,
+     none on the host (the bfp.wire.* counters);
   5. Hybrid+BFX (Config.lossless=BFX, flag 0): the same field and
      tolerance, the same counters (K5-K8);
   6. the main path at 128^3: flag 1 with a BFX remainder (K1-K6);
@@ -61,10 +63,10 @@ Phases (each prints a line; any failure exits nonzero before the result):
      flag-2 stream written on the CPU decoded on the card;
   8. MDR, the progressive refactor/retrieval path, on the 384^3 bench field
      (float32, default Config: B=32, zlib planes, direct interleaver):
-     MDRefactor (best of 3) and its device phase, then MDRequest +
-     MDReconstruct at tol 1e-2, 1e-3 and 1e-4 (the bytes fetched must rise
-     strictly with the tightness), with the launch counters reset just
-     before and read just after (K9, four levels per refactor);
+     one timed MDRefactor (mdr384.zlib.progressive measures its speed),
+     then MDRequest + MDReconstruct at tol 1e-2, 1e-3 and 1e-4 (the bytes
+     fetched must rise strictly with the tightness), with the launch
+     counters reset just before and read just after (K9, four levels);
   9. the same field with mdr_level_compressor="bfx" (K5 on refactor, K6 on
      reconstruct);
  10. MDR across devices at 128^3: a stream written on the card reconstructs
@@ -164,11 +166,12 @@ REPO_KERNELS = {
                    "mgard_tpu/lossless/bfp.py:278"),
     "bfp_decode": ("mgard_tpu_torch/csrc/bfp.cu",
                    "mgard_tpu/lossless/bfp.py:329"),
-    # K12/K13 replace no TPU kernel: the host's NumPy band compaction
+    # K12/K13 replace no TPU kernel: the JAX package's NumPy band
+    # compaction on the host; their plain versions serve CPU tensors
     "bfp_compact": ("mgard_tpu_torch/csrc/bfp.cu",
-                    "mgard_tpu_torch/lossless/bfp.py::_compact_sb (host)"),
+                    "mgard_tpu_torch/lossless/bfp.py::compact_wire_plain"),
     "bfp_expand": ("mgard_tpu_torch/csrc/bfp.cu",
-                   "mgard_tpu_torch/lossless/bfp.py::_expand_resid (host)"),
+                   "mgard_tpu_torch/lossless/bfp.py::expand_wire_plain"),
     "hybrid_inv_v2": ("mgard_tpu_torch/csrc/hybrid_v2.cu",
                       "mgard_tpu/ops/hybrid.py:682"),
     "bfx_encode": ("mgard_tpu_torch/csrc/bfx.cu",
@@ -329,25 +332,6 @@ def launch_ms(fn, reps=20):
         b.record()
     torch.cuda.synchronize()
     return [a.elapsed_time(b) for a, b in ev]
-
-
-def host_profile(fn, top=5):
-    """Run fn once under cProfile, ending in a device sync. Returns its wall
-    time (s) and the `top` functions with the most own time, as
-    (seconds, name)."""
-    import cProfile
-    import pstats
-
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.enable()
-    fn()
-    torch.cuda.synchronize()
-    prof.disable()
-    wall = time.perf_counter() - t0
-    own = sorted(((v[2], f"{k[2]} ({os.path.basename(k[0])}:{k[1]})")
-                  for k, v in pstats.Stats(prof).stats.items()), reverse=True)
-    return wall, own[:top]
 
 
 def tensor_bytes(*objs):
@@ -1400,21 +1384,21 @@ def main():
           f"rows equal; encode {cf_enc[0]:.4f} ms (plain {cf_enc[1]:.4f}), "
           f"decode {cf_dec[0]:.4f} ms (plain {cf_dec[1]:.4f})")
 
-    # K12/K13, the cf stream's wire compaction: the card's branch writes
-    # the host path's blob and reads it back to K2's band rows; each kernel
-    # equal to its plain version, timed beside a copy of the wire words
-    with Recorder(B, "_on_card", lambda device: False):
-        blob_h = join(B.serialize_prepared_parts(n_cf, K, E, sb, C, crl,
-                                                 *out_k))
-        base_h, _, rbuf_h, _, _ = B.deserialize_prepared(blob_k, 0, dev)
+    # K12/K13, the cf stream's wire compaction: the card writes the blob of
+    # the same tensors on the CPU (the plain versions) and reads it back to
+    # K2's band rows, as the CPU does; each kernel equal to its plain
+    # version, timed beside a copy of the wire words
+    blob_h = join(B.serialize_prepared_parts(n_cf, K, E, sb, C, crl.cpu(),
+                                             *(t.cpu() for t in out_k)))
     if blob_h != blob_k:
-        raise AssertionError("K12 (cf stream) bytes differ from the host's")
+        raise AssertionError("K12 (cf stream) bytes differ from the CPU's")
+    base_h, _, rbuf_h, _, _ = B.deserialize_prepared(blob_k, 0, "cpu")
     base_d, _, rbuf_d, _, _ = B.deserialize_prepared(blob_k, 0, dev)
     nrow = rbuf_d.shape[0]
-    if not (torch.equal(base_d, base_h) and torch.equal(rbuf_d, rbuf_h[:nrow])
-            and torch.equal(rbuf_d, out_k[1][:nrow])
-            and not rbuf_h[nrow:].any()):
-        raise AssertionError("K13 (cf stream) differs from the host's "
+    if not (torch.equal(base_d.cpu(), base_h)
+            and torch.equal(rbuf_d.cpu(), rbuf_h)
+            and torch.equal(rbuf_d, out_k[1][:nrow])):
+        raise AssertionError("K13 (cf stream) differs from the CPU's "
                              "expansion")
     geo = B._band_geometry(crl.cpu().numpy(), E, C, sb)
     wtab = B._wire_table(*geo[:3], C)
@@ -1442,7 +1426,7 @@ def main():
     k13_bytes = tensor_bytes(wire, rbuf_d, wtab_d)
     phase(f"phase 3 K12/K13 cf stream: {wire.numel()} wire words, {nrow} "
           f"band rows, {wtab.shape[0]} bands: blob and band rows equal to "
-          f"the host path's; K12 {k12_ms:.4f} ms (bound "
+          f"the CPU's; K12 {k12_ms:.4f} ms (bound "
           f"{bound(k12_bytes, 0)[0]:.4f}), K13 {k13_ms:.4f} ms (bound "
           f"{bound(k13_bytes, 0)[0]:.4f}); a copy of the wire words "
           f"{wire_copy:.4f} ms")
@@ -2074,15 +2058,13 @@ def main():
     from mgard_tpu_torch.utils import trace
 
     wire0 = trace.counters()
-    times = []
-    for _rep in range(3):
-        t0 = time.perf_counter()
-        blob, st = M.compress(v, TOL, s=math.inf, mode=M.error_bound_type.ABS)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out, st2 = M.decompress(blob, device=dev)
-        torch.cuda.synchronize()
-        times.append((t1 - t0, time.perf_counter() - t1))
+    t0 = time.perf_counter()
+    blob, st = M.compress(v, TOL, s=math.inf, mode=M.error_bound_type.ABS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, st2 = M.decompress(blob, device=dev)
+    torch.cuda.synchronize()
+    tc, td = t1 - t0, time.perf_counter() - t1
     launches_main = dict(kernels.LAUNCHES)
     wire1 = trace.counters()
     wire = [wire1.get(k, 0) - wire0.get(k, 0)
@@ -2090,7 +2072,7 @@ def main():
     # every BFP blob of the main path (the cf stream and the remainder) is
     # compacted and expanded on the card, none on the host
     if wire != [launches_main["bfp_compact"] + launches_main["bfp_expand"],
-                0] or launches_main["bfp_compact"] != 6:
+                0] or launches_main["bfp_compact"] != 2:
         raise AssertionError(f"main path: BFP blobs on the card / host "
                              f"{wire}, launches {launches_main}")
     peak = torch.cuda.max_memory_allocated(dev)
@@ -2106,26 +2088,23 @@ def main():
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing} ({launches_main})")
-    # the remainder's transform: K14, one launch a level each way a rep
+    # the remainder's transform: K14, one launch a level each way
     rem_levels = get_hierarchy(Hy.remainder_shape(
         Hy.pad_to8(v.shape), cfg.num_local_refactoring_level), np.float32,
         None, cfg).l_target
     if (launches_main["multidim_decompose"], launches_main[
-            "multidim_recompose"]) != (3 * rem_levels, 3 * rem_levels):
+            "multidim_recompose"]) != (rem_levels, rem_levels):
         raise AssertionError(f"main path: K14 launches {launches_main}, "
-                             f"want {3 * rem_levels} each way")
+                             f"want {rem_levels} each way")
     err = float((out - v).abs().max())
     if not (torch.isfinite(out).all() and tuple(out.shape) == tuple(v.shape)
             and err <= TOL):
         raise AssertionError(f"main path: L-inf {err} > {TOL} or bad output")
-    tc = min(t[0] for t in times)
-    td = min(t[1] for t in times)
     main_ms = (tc * 1e3, td * 1e3)
     phase(f"phase 4 main path {N_MAIN}^3 f32 tol={TOL}: flag 1, ratio "
           f"{nbytes / len(blob):.4f}, L-inf {err:.3e}; compress "
           f"{tc * 1e3:.1f} ms ({nbytes / tc / 1e9:.3f} GB/s), decompress "
-          f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [best of 3; "
-          f"first {times[0][0] * 1e3:.1f} / {times[0][1] * 1e3:.1f} ms]; "
+          f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [one call]; "
           f"peak device memory {peak / 2**30:.3f} GiB; BFP blobs with "
           f"the wire on the card / host {wire}; launches {launches_main}")
     del out
@@ -2170,8 +2149,7 @@ def main():
           f"section (sb={X.SB_BLOCKS}, align={X.ALIGN}), ratio "
           f"{nbytes / len(blob):.4f}, L-inf {err:.3e}; compress "
           f"{tc * 1e3:.1f} ms ({nbytes / tc / 1e9:.3f} GB/s), decompress "
-          f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [best of 3; "
-          f"first {times[0][0] * 1e3:.1f} / {times[0][1] * 1e3:.1f} ms]; "
+          f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [one call]; "
           f"peak device memory {peak / 2**30:.3f} GiB; launches "
           f"{launches_bfx}")
     del out, v, blob
@@ -2286,22 +2264,12 @@ def main():
     v384 = bench_field(N_MDR, dev)
     mcfg = M.Config()
     raw = v384.numel() * 4
-    t_dev = []
-    for _rep in range(3):  # the device phase alone (also a warm-up)
-        t0 = time.perf_counter()
-        res = MA._refactor_levels(v384, h384, 32, False, False, 0)
-        torch.cuda.synchronize()
-        t_dev.append(time.perf_counter() - t0)
-    del res
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
-    t_ref = []
-    for _rep in range(3):
-        t0 = time.perf_counter()
-        meta, data = MDR.MDRefactor(v384, mcfg)
-        torch.cuda.synchronize()
-        t_ref.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    meta, data = MDR.MDRefactor(v384, mcfg)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
     stored = len(meta.serialize()) + sum(sum(lm.plane_sizes)
                                          for lm in meta.levels)
     recon, prev = [], 0
@@ -2325,31 +2293,19 @@ def main():
         prev = nbytes
     launches_mdr = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches_mdr["bitplane_encode"] < 4 * 3:
+    if launches_mdr["bitplane_encode"] < 4:
         raise AssertionError(f"K9 launched {launches_mdr['bitplane_encode']}"
-                             f" times in 3 refactors ({launches_mdr})")
+                             f" times in one refactor ({launches_mdr})")
     phase(f"phase 8 MDR {N_MDR}^3 f32 B=32 zlib: MDRefactor "
-          f"{min(t_ref) * 1e3:.1f} ms ({raw / min(t_ref) / 1e9:.3f} GB/s; "
-          f"best of 3, first {t_ref[0] * 1e3:.1f} ms), device phase "
-          f"{min(t_dev) * 1e3:.1f} ms (best of 3), stored {stored} bytes "
-          f"(ratio {raw / stored:.4f}); peak device memory "
-          f"{peak / 2**30:.3f} GiB; K9 launches "
-          f"{launches_mdr['bitplane_encode']} in 3 refactors")
+          f"{t_ref * 1e3:.1f} ms ({raw / t_ref / 1e9:.3f} GB/s; one call), "
+          f"stored {stored} bytes (ratio {raw / stored:.4f}); peak device "
+          f"memory {peak / 2**30:.3f} GiB; K9 launches "
+          f"{launches_mdr['bitplane_encode']} in one refactor")
     for tol, nbytes, err, tr, counts in recon:
         phase(f"phase 8 MDReconstruct tol {tol:g}: retrieve {nbytes} of "
               f"{stored} stored bytes (planes per level {counts}), L-inf "
               f"{err:.3e}, "
               f"{tr * 1e3:.1f} ms")
-    # where the host time goes: one more refactor and one reconstruct
-    # under cProfile (outside the counted runs above)
-    counts = MDR.MDRequest(meta, 1e-3)
-    for what, fn in (("MDRefactor", lambda: MDR.MDRefactor(v384, mcfg)),
-                     ("MDReconstruct tol 1e-3",
-                      lambda: MDR.MDReconstruct(meta, data, counts))):
-        wall, own = host_profile(fn)
-        phase(f"phase 8 {what} under cProfile: {wall * 1e3:.1f} ms wall; "
-              "most own time: " + "; ".join(f"{name} {t * 1e3:.1f} ms"
-                                            for t, name in own))
     meta.prev_used = []
     del rec, data
 

@@ -312,10 +312,10 @@ MGARD_EXPORT int bfp_decode(const void* base, const void* resid,
 
 // K12 bfp_compact and K13 bfp_expand: BFP5's wire compaction on the card.
 //
-// They replace no TPU kernel: the JAX package (and the port's CPU path,
-// mgard_tpu_torch/lossless/bfp.py::_compact_sb and ::_expand_resid) maps
-// between K2/K3's row-padded bands and the compact wire words on the
-// host, in NumPy. Plain versions: compact_wire_plain and
+// They replace no TPU kernel: the JAX package maps between K2/K3's
+// row-padded bands and the compact wire words on the host, in NumPy
+// (mgard_tpu/lossless/bfp.py, its band compaction and expansion). Plain
+// versions, which also serve CPU tensors: compact_wire_plain and
 // expand_wire_plain in mgard_tpu_torch/lossless/bfp.py.
 //
 // The wire holds, superblock by superblock and plane by plane, the C slots

@@ -583,7 +583,7 @@ def _serialize_hybrid_v3(st, config: Config) -> list:
     Z = padded[-1]
     crl = (cw.reshape(-1) - K).clamp(0, E)
     cf_parts = _bfp.serialize_prepared_parts(n_cf, K, E, 32 * Z, Z // 32, crl,
-                                             base, resid, 0, static_cap=True)
+                                             base, resid, static_cap=True)
     count("hybrid.flag.2")
     return ([_EMPTY_OUTLIERS + struct.pack("<B", 2)
              + struct.pack("<Q", parts_size(cf_parts))]

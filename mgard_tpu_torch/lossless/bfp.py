@@ -15,11 +15,10 @@ and the sort rank; on the card a thread owns a block of a sorted column
 and reads (or writes) its chunk through the inverse of rank, so the sort
 needs no row gather pass on either side. Two more map K2's row-padded
 bands to the compact wire words and back: ``compact_wire`` (K12) and
-``expand_wire`` (K13), so that on the card the host moves each wire byte
-once (a copy straight into the blob, an upload straight from it); on the
-CPU the NumPy functions ``_compact_sb`` / ``_expand_resid`` do that on
-the host. Each wrapper takes the plain version beside it for CPU tensors
-and launches its kernel for CUDA tensors.
+``expand_wire`` (K13), so that the host moves each wire byte once (a copy
+straight into the blob, an upload straight from it). Each wrapper takes
+the plain version beside it for CPU tensors and launches its kernel for
+CUDA tensors: a blob has one path on every device.
 
 Packed words are int32 bit patterns and u16 payloads ``torch.int16`` bit
 patterns (torch lacks shifts and max on uint32/uint16 on the CPU).
@@ -37,7 +36,6 @@ from ..ops.compact import masked_indices
 from ..ops.hybrid import bit_length
 from ..utils.trace import count, span, to_device, to_host, traced
 from .bfx import BS, _bit_transpose32, _blob_tensor, _unzigzag, _zigzag
-from .huffman import device_get_prefix
 
 SB_BLOCKS = 16384
 # Below SB_PALLAS_MIN*32 symbols a stream uses BFX (highlevel
@@ -342,8 +340,8 @@ def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
 
     Returns (base (NSB, max(K,1), C, sbc) int32 [sorted order], crl (NC,)
     int32 [chunk residual lengths, natural order], resid2d (alloc_rows, 128)
-    int32, resid_rows, exc_ids (exc_cap,) int32, exc_blocks (exc_cap, 32C)
-    int32, exc_count)."""
+    int32, exc_ids (exc_cap,) int32, exc_blocks (exc_cap, 32C) int32,
+    exc_count)."""
     N = sym_padded.shape[0]
     NB = N // BS
     NC = NB // C
@@ -364,11 +362,11 @@ def encode_core(sym_padded, K: int, E: int, sb: int, exc_cap: int,
     payload = zz_rows.to(torch.int16) if (K + E) <= 16 else zz_rows
     with span("codec.bfp_plan"):
         rank_c, cnt_c = _sort_plan(crl.reshape(NSB, sbc), E)
-        rband, woff, sb_off, resid_rows = _plan_offsets(cnt_c, C)
+        rband, woff, sb_off, _ = _plan_offsets(cnt_c, C)
     alloc_rows = (NSB + 1) * E * (sb // LANES)
     base, resid2d = encode_bands(payload.contiguous(), rank_c, woff, rband,
                                  sb_off, K, E, sb, C, alloc_rows)
-    return base, crl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count
+    return base, crl, resid2d, exc_ids, exc_blocks, exc_count
 
 
 @traced("kernel.bfp_decode")
@@ -396,14 +394,13 @@ def encode_core_zz(payload_rows, crl, K: int, E: int, sb: int, C: int,
                    static_cap: bool = False):
     """Prepared-payload encode (hybrid v2 cf stream): payload_rows (NC, 32C)
     int16 u16 zigzag codes, grouped and exception-free; crl (NC,) int32.
-    Returns (base, resid2d, resid_rows). static_cap writes the residual
-    planes in the static-cap layout (_static_plan), the device layout of
-    the fused flag-2 front end; resid2d then has exactly NSB*CAP rows."""
-    rank_c, _, rband, woff, sb_off, resid_rows, alloc_rows = _zz_plan(
+    Returns (base, resid2d). static_cap writes the residual planes in the
+    static-cap layout (_static_plan), the device layout of the fused flag-2
+    front end; resid2d then has exactly NSB*CAP rows."""
+    rank_c, _, rband, woff, sb_off, _, alloc_rows = _zz_plan(
         crl, E, sb, C, static_cap)
-    base, resid2d = encode_bands(payload_rows, rank_c, woff, rband, sb_off,
-                                 K, E, sb, C, alloc_rows)
-    return base, resid2d, resid_rows
+    return encode_bands(payload_rows, rank_c, woff, rband, sb_off, K, E, sb,
+                        C, alloc_rows)
 
 
 @traced("kernel.bfp_decode")
@@ -419,9 +416,9 @@ def decode_core_zz(base4d, crl, resid2d, K: int, E: int, sb: int, NB: int,
 
 # ----------------------------------------------------------------------
 # Wire compaction: map between the row-padded band layout of K2/K3 and the
-# compact valid-words wire layout, from the sidecar alone. A residual
-# tensor on the card takes K12/K13 (csrc/bfp.cu), so the host moves each
-# wire byte once; elsewhere the NumPy functions below do it on the host.
+# compact valid-words wire layout, from the sidecar alone: K12/K13
+# (csrc/bfp.cu) for a residual tensor on the card, their plain versions
+# for one on the CPU.
 # ----------------------------------------------------------------------
 def _wire_counts(crl, E: int, C: int, sb: int) -> np.ndarray:
     """(NSB, E) host array cnt[s, j] = #(rl > j) over superblock s of the
@@ -552,42 +549,21 @@ def expand_wire(wire, tab_h: np.ndarray, C: int, rows: int):
     return out
 
 
-def _on_card(device) -> bool:
-    """Whether BFP's wire compaction of a blob runs on the card (K12/K13)
-    or on the host: the device its tensors live on decides."""
-    return torch.device(device).type == "cuda"
-
-
-def _compact_sb(out: np.ndarray, resid_flat: np.ndarray, cnt, rband,
-                band_start, C: int, s: int) -> int:
-    """Write superblock s's compact residual words into out; returns the
-    word count written."""
-    o = 0
-    for p in range(cnt.shape[1]):
-        c = int(cnt[s, p])
-        if not c:
-            continue
-        r = int(rband[s, p])
-        st = int(band_start[s, p]) * LANES
-        band = resid_flat[st : st + C * r * LANES].reshape(C, r * LANES)
-        m = C * c
-        out[o : o + m].reshape(C, c)[:] = band[:, :c]
-        o += m
-    return o
+def _count_wire(device) -> None:
+    """Count a blob's wire map where it ran: K12/K13 on the card, or their
+    plain versions on CPU tensors."""
+    count("bfp.wire.host" if torch.device(device).type == "cpu"
+          else "bfp.wire.device")
 
 
 @traced("codec.bfp_blob")
 def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
-                resid2d, resid_rows, exc_cnt: int,
-                static_cap: bool = False) -> list:
+                resid2d, exc_cnt: int, static_cap: bool = False) -> list:
     """BFP5 blob as bytesink parts: header, nibble sidecar, base planes and
-    the compact residual words. On the card K12 compacts the residual
-    there, and the base planes and the wire words are Fills that copy from
-    the card straight into the final blob. On the host the residual is one
-    Fill a superblock, compacting the device_get_prefix copy in NumPy;
-    under static_cap the whole residual buffer comes to the host then:
-    every superblock's slot holds valid words."""
-    from ..utils.bytesink import Fill, device_fill
+    the compact residual words. compact_wire maps the residual to the wire
+    on its device, and the base planes and the wire words are Fills that
+    copy them straight into the final blob."""
+    from ..utils.bytesink import device_fill
 
     cnt, rband, band_start, _ = _band_geometry(crl, E, C, sb, static_cap)
     rl_h = to_host(crl).astype(np.uint8)
@@ -597,65 +573,20 @@ def _blob_parts(n: int, K: int, E: int, sb: int, C: int, crl, base,
     words = int(cnt.sum()) * C
     head = struct.pack(_HDR, _MAGIC, n, words, K, E, sb, C, exc_cnt)
     parts = [head, nib]
-    if _on_card(resid2d.device):
-        count("bfp.wire.device")
-        if K:
-            parts.append(device_fill(base[:, :K].contiguous()))
-        if words:
-            parts.append(device_fill(compact_wire(
-                resid2d, _wire_table(cnt, rband, band_start, C), C)))
-        return parts
-    count("bfp.wire.host")
-    rows_i = (resid2d.shape[0] if static_cap
-              else int(to_host(resid_rows)) if torch.is_tensor(resid_rows)
-              else int(resid_rows))
+    _count_wire(resid2d.device)
     if K:
-        parts.append(to_host(base[:, :K].contiguous()).view("<u4"))
-    resid_flat = device_get_prefix(resid2d.reshape(-1),
-                                   rows_i * LANES).view("<u4")
-    words_sb = cnt.sum(1) * C
-    for s in range(cnt.shape[0]):
-        if int(words_sb[s]):
-            parts.append(Fill(4 * int(words_sb[s]), lambda d, s=s: _compact_sb(
-                d.view("<u4"), resid_flat, cnt, rband, band_start, C, s),
-                "codec.bfp_compact"))
+        parts.append(device_fill(base[:, :K].contiguous()))
+    if words:
+        parts.append(device_fill(compact_wire(
+            resid2d, _wire_table(cnt, rband, band_start, C), C)))
     return parts
 
 
 def serialize_prepared_parts(n: int, K: int, E: int, sb: int, C: int, crl,
-                             base, resid2d, resid_rows,
-                             static_cap: bool = False) -> list:
+                             base, resid2d, static_cap: bool = False) -> list:
     """encode_core_zz result as bytesink parts (exception-free blob);
     static_cap names the layout of resid2d, the bytes do not depend on it."""
-    return _blob_parts(n, K, E, sb, C, crl, base, resid2d, resid_rows, 0,
-                       static_cap)
-
-
-@traced("codec.bfp_expand")
-def _expand_resid(compact: np.ndarray, crl_h: np.ndarray, E: int, C: int,
-                  sb: int, static_cap: bool = False) -> np.ndarray:
-    """Inverse of the wire compaction -> (rows + CAP, 128) uint32, or the
-    NSB*CAP rows of the static-cap layout."""
-    cnt, rband, band_start, rows = _band_geometry(crl_h, E, C, sb,
-                                                  static_cap)
-    total = int(cnt.sum()) * C
-    if compact.shape[0] != total:
-        raise ValueError(f"BFP resid stream has {compact.shape[0]} words, "
-                         f"sidecar implies {total}")
-    CAP = 0 if static_cap else E * (sb // LANES)
-    buf = np.zeros(((rows + CAP) * LANES,), np.uint32)
-    o = 0
-    for s in range(cnt.shape[0]):
-        for p in range(cnt.shape[1]):
-            c = int(cnt[s, p])
-            if not c:
-                continue
-            r = int(rband[s, p])
-            st = int(band_start[s, p]) * LANES
-            band = buf[st : st + C * r * LANES].reshape(C, r * LANES)
-            band[:, :c] = compact[o : o + C * c].reshape(C, c)
-            o += C * c
-    return buf.reshape(-1, LANES)
+    return _blob_parts(n, K, E, sb, C, crl, base, resid2d, 0, static_cap)
 
 
 @traced("codec.bfp_parse")
@@ -691,42 +622,27 @@ def _body(data: bytes, p: int, geom: dict, rl: np.ndarray, device,
     """The sidecar rl and the body of a blob at p as int32 tensors on
     device: base planes (NSB, max(K,1), C, sbc), residual lengths (NC,),
     row-padded residual bands (rows, 128), and the offset past the body.
-    To the card both word ranges go up in one copy straight from the blob,
-    and K13 expands the bands there; elsewhere NumPy builds both on the
-    host. static_cap expands into the static-cap layout."""
+    Both word ranges go to the device in one copy straight from the blob,
+    and expand_wire expands the bands there. static_cap expands into the
+    static-cap layout."""
     n, K, E, sb, C = (geom[k] for k in ("n", "K", "E", "sb", "C"))
     NB = _pad_to(n, sb) // BS
     NSB, sbc = NB // sb, sb // C
     nbase, words = K * NB, geom["resid_words"]
     end = p + 4 * (nbase + words)
-    crl = _to_dev(rl, device)
-    if _on_card(device):
-        count("bfp.wire.device")
-        cnt, rband, band_start, rows = _band_geometry(crl, E, C, sb,
-                                                      static_cap)
-        if int(cnt.sum()) * C != words:
-            raise ValueError(f"BFP resid stream has {words} words, sidecar "
-                             f"implies {int(cnt.sum()) * C}")
-        body = to_device(_blob_tensor(np.frombuffer(data, np.uint8,
-                                                    end - p, p)),
-                         device).view(_I32)
-        base = (body[:nbase].view(NSB, K, C, sbc) if K else
-                torch.zeros((NSB, 1, C, sbc), dtype=_I32, device=device))
-        resid = expand_wire(body[nbase:], _wire_table(cnt, rband,
-                                                      band_start, C), C, rows)
-        return base, crl, resid, end
-    count("bfp.wire.host")
-    base = np.zeros((NSB, max(K, 1), C, sbc), np.uint32)
-    if K:
-        base[:, :K] = np.frombuffer(data, "<u4", nbase, p).reshape(
-            NSB, K, C, sbc)
-    rbuf = _expand_resid(np.frombuffer(data, "<u4", words, p + 4 * nbase),
-                         rl, E, C, sb, static_cap)
-    return _to_dev(base, device), crl, _to_dev(rbuf, device), end
-
-
-def _to_dev(a: np.ndarray, device):
-    return to_device(np.ascontiguousarray(a).view(np.int32), device)
+    crl = to_device(rl, device)
+    _count_wire(device)
+    cnt, rband, band_start, rows = _band_geometry(crl, E, C, sb, static_cap)
+    if int(cnt.sum()) * C != words:
+        raise ValueError(f"BFP resid stream has {words} words, sidecar "
+                         f"implies {int(cnt.sum()) * C}")
+    body = to_device(_blob_tensor(np.frombuffer(data, np.uint8, end - p, p)),
+                     device).view(_I32)
+    base = (body[:nbase].view(NSB, K, C, sbc) if K else
+            torch.zeros((NSB, 1, C, sbc), dtype=_I32, device=device))
+    resid = expand_wire(body[nbase:], _wire_table(cnt, rband, band_start, C),
+                        C, rows)
+    return base, crl, resid, end
 
 
 def deserialize_prepared(data: bytes, offset: int = 0, device="cpu",
@@ -844,7 +760,7 @@ def serialize_device_parts(state) -> list:
         return [struct.pack(_HDR, _MAGIC, 0, 0, 0, 0, SB_BLOCKS_SMALL, CHUNK,
                             0)]
     _, n, K, E, sb, exc_cap, sym, out, C = state
-    base, rl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count = out
+    base, rl, resid2d, exc_ids, exc_blocks, exc_count = out
     cnt = int(to_host(exc_count))
     NB = _pad_to(n, sb) // BS
     if cnt > exc_cap:
@@ -852,11 +768,11 @@ def serialize_device_parts(state) -> list:
         exc_cap = _exc_bucket(cnt, NB // C)
         _K_CACHE[(_pad_to(n, sb), E, C)] = (K, exc_cap)
         out = encode_core(sym, K, E, sb, exc_cap, C)
-        base, rl, resid2d, resid_rows, exc_ids, exc_blocks, exc_count = out
+        base, rl, resid2d, exc_ids, exc_blocks, exc_count = out
         cnt = int(to_host(exc_count))
-    ids_h = device_get_prefix(exc_ids, cnt).astype("<u4")
-    blk_h = device_get_prefix(exc_blocks, cnt).astype("<i4")
-    return (_blob_parts(n, K, E, sb, C, rl, base, resid2d, resid_rows, cnt)
+    ids_h = to_host(exc_ids[:cnt]).astype("<u4")
+    blk_h = to_host(exc_blocks[:cnt]).astype("<i4")
+    return (_blob_parts(n, K, E, sb, C, rl, base, resid2d, cnt)
             + [ids_h, blk_h])
 
 

@@ -393,8 +393,8 @@ def transform_pack_v3(v, inv_q: float, nl: int, K: int, E: int):
     cw = torch.where(over, torch.full_like(cw, 32), cw)
     crl = (cw - K).clamp(0, E).reshape(-1)
     rows = field_rows_tilemajor(pay).contiguous()
-    base, resid, _ = bfp.encode_core_zz(rows, crl, K, E, sb, C,
-                                        static_cap=True)
+    base, resid = bfp.encode_core_zz(rows, crl, K, E, sb, C,
+                                     static_cap=True)
     return base, resid, cw, rem
 
 

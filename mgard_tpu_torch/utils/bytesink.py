@@ -13,8 +13,7 @@ A part is one of
     strided view of the destination when alignment admits it);
   - :class:`Fill`                               — ``size`` bytes produced
     by ``fn(out)`` writing into a uint8 view of the destination region
-    (lets e.g. BFP residual compaction, or a copy from the card, target the
-    final buffer directly).
+    (lets e.g. a copy from the card target the final buffer directly).
 
 ``join`` allocates the result with ``PyBytes_FromStringAndSize(NULL, n)``
 and fills it in place through a NumPy view — the only way in CPython to
@@ -27,31 +26,20 @@ correctness at the cost of that one extra copy.
 from __future__ import annotations
 
 import ctypes
-import itertools
-import os
 import sys
-from typing import Callable, List, NamedTuple, Union
+from typing import Callable, NamedTuple, Union
 
 import numpy as np
 
-from .trace import NO_SPAN, span, to_host_into
-
-# parts write disjoint destination regions, so assembly parallelizes
-# trivially; numpy block copies release the GIL. 0/1 disables (default on
-# single-core hosts); more cores help up to memory bandwidth.
-_THREADS = int(os.environ.get("MGARD_TPU_SERIALIZE_THREADS",
-                              min(4, os.cpu_count() or 1)))
-_MIN_PARALLEL_BYTES = 8 << 20
+from .trace import span, to_host_into
 
 
 class Fill(NamedTuple):
     """A deferred region: ``fn`` writes exactly ``size`` bytes into the
-    uint8 destination view it is handed. ``stage``, where given, names the
-    span (``utils/trace.py``) that a run of such Fills is written in."""
+    uint8 destination view it is handed."""
 
     size: int
     fn: Callable[[np.ndarray], None]
-    stage: str = ""
 
 
 Part = Union[bytes, bytearray, memoryview, np.ndarray, Fill]
@@ -61,7 +49,8 @@ def device_fill(t) -> Fill:
     """A Fill of contiguous tensor ``t``'s bytes, copied from its device
     straight into the destination (``trace.to_host_into``). The copy is
     ordered on the CUDA stream current where the Fill is made, the one
-    that wrote ``t``: ``join``'s pool threads run on the default stream."""
+    that wrote ``t``, whatever stream is current when ``join`` runs it (a
+    caller may assemble one stream while the next computes on another)."""
     import torch
 
     stream = (torch.cuda.current_stream(t.device)
@@ -122,36 +111,14 @@ def _write_part(dst: np.ndarray, p: Part) -> None:
         dst[:] = np.frombuffer(p, np.uint8)
 
 
-def join_into(out: np.ndarray, parts, threads: int | None = None) -> int:
-    """Write ``parts`` consecutively into uint8 array ``out``; returns the
-    total byte count written. Parts target disjoint regions, so big
-    streams are written by a thread pool when ``threads`` (default: the
-    MGARD_TPU_SERIALIZE_THREADS env knob, capped at 4) allows. On one
-    thread each run of consecutive Fill parts of one ``stage`` (BFP's host
-    residual compaction: ``codec.bfp_compact``) is one span of it."""
-    parts = list(parts)  # one-shot iterators are walked twice below
-    offs, o = [], 0
+def join_into(out: np.ndarray, parts) -> int:
+    """Write ``parts`` consecutively into uint8 array ``out``, on the
+    caller's thread; returns the total byte count written."""
+    o = 0
     for p in parts:
-        offs.append(o)
-        o += part_nbytes(p)
-    nthreads = _THREADS if threads is None else threads
-    if nthreads > 1 and o >= _MIN_PARALLEL_BYTES and len(parts) > 1:
-        from concurrent.futures import ThreadPoolExecutor
-
-        with ThreadPoolExecutor(max_workers=nthreads) as ex:
-            list(ex.map(
-                lambda t: _write_part(out[t[0] : t[0] + part_nbytes(t[1])],
-                                      t[1]),
-                zip(offs, parts),
-            ))
-        return o
-    runs = itertools.groupby(
-        zip(offs, parts),
-        key=lambda t: t[1].stage if isinstance(t[1], Fill) else "")
-    for stage, run in runs:
-        with span(stage) if stage else NO_SPAN:
-            for off, p in run:
-                _write_part(out[off : off + part_nbytes(p)], p)
+        n = part_nbytes(p)
+        _write_part(out[o : o + n], p)
+        o += n
     return o
 
 

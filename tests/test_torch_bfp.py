@@ -153,7 +153,9 @@ _BAND_CASES = [
 @pytest.mark.parametrize("seed,nsb,E,C,sb", _BAND_CASES)
 def test_band_compaction_matches_jax(seed, nsb, E, C, sb):
     """Band compaction/expansion, including zero-count bands (the cases of
-    tests/test_bfp.py::test_band_compaction_matches_index_oracle)."""
+    tests/test_bfp.py::test_band_compaction_matches_index_oracle): the
+    plain versions of K12/K13, which the CPU runs, against the JAX
+    package's NumPy compaction and expansion."""
     L = J.LANES
     rng = np.random.default_rng(seed)
     NC = (sb // C) * nsb
@@ -165,14 +167,14 @@ def test_band_compaction_matches_jax(seed, nsb, E, C, sb):
     ref = J._compact_resid(rf, crl, E, C, sb)
     cnt, rband, start, rows_t = T._band_geometry(crl, E, C, sb)
     assert rows_t == rows
-    new = np.empty_like(ref)
-    o = 0
-    for s in range(cnt.shape[0]):
-        o += T._compact_sb(new[o:], rf, cnt, rband, start, C, s)
-    assert o == ref.size
-    np.testing.assert_array_equal(new, ref)
-    np.testing.assert_array_equal(T._expand_resid(new, crl, E, C, sb),
-                                  J._expand_resid(ref, crl, E, C, sb)[0])
+    tab = torch.from_numpy(T._wire_table(cnt, rband, start, C))
+    resid2d = torch.from_numpy(rf.view(np.int32)).reshape(-1, L)
+    wire = T.compact_wire_plain(resid2d, tab, C)
+    np.testing.assert_array_equal(wire.numpy().view(np.uint32), ref)
+    want = J._expand_resid(ref, crl, E, C, sb)[0]  # rows + spare rows
+    got = T.expand_wire_plain(wire, tab, C, rows).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want[:rows])
+    assert not want[rows:].any()
 
 
 def test_corrupt_sidecar_is_rejected():

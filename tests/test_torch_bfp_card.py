@@ -1,17 +1,19 @@
 """PyTorch port, BFP's wire compaction on the card (K12/K13, csrc/bfp.cu)
-against the host path: for flag-1 and flag-2 streams through the public
-API and a standalone BFP stream with exceptions, the card's branch writes
-the host path's bytes, both branches decode them to the same tensor, and
-streams cross between the card and the CPU both ways; the kernels equal
-their plain versions on every bfp.BAND_CASES geometry in both layouts.
-Tests marked ``card`` skip without a CUDA card; on the GPU host:
+against the same blobs made of CPU tensors, where the wrappers run their
+plain versions: for flag-1 and flag-2 streams through the public API and a
+standalone BFP stream with exceptions, the card writes the bytes that the
+same symbols give on the CPU, both read them to the same tensors, and
+streams cross between the card and the CPU both ways; a blob compressed
+under a side stream copies after K12; the kernels equal their plain
+versions on every bfp.BAND_CASES geometry in both layouts. Tests marked
+``card`` skip without a CUDA card; on the GPU host:
 
     python3 -m pytest --noconftest -m card tests/test_torch_bfp_card.py
 
-The unmarked test counts the host branch on the CPU. This file imports no
-JAX (the GPU host has none)."""
+The unmarked test counts the plain versions on the CPU. This file imports
+no JAX (the GPU host has none)."""
 
-import threading
+import struct
 
 import numpy as np
 import pytest
@@ -21,7 +23,8 @@ import mgard_tpu_torch as M
 from mgard_tpu_torch import highlevel as HL, kernels
 from mgard_tpu_torch.formats.metadata import Metadata
 from mgard_tpu_torch.lossless import bfp as T
-from mgard_tpu_torch.utils import bytesink, trace
+from mgard_tpu_torch.utils import trace
+from mgard_tpu_torch.utils.bytesink import join
 
 torch.set_num_threads(1)  # pytest-xdist workers share the machine's cores
 
@@ -57,9 +60,12 @@ def _field(shape, seed=3):
     return torch.from_numpy(v.astype(np.float32))
 
 
-def _flag(blob):
+def _cf_section(blob):
+    """(flag, cf stream blob) of a Hybrid stream's payload."""
     _m, off = Metadata.deserialize(blob)
-    return blob[off + 8 + len(HL._EMPTY_OUTLIERS)]
+    p = off + 8 + len(HL._EMPTY_OUTLIERS)
+    (n,) = struct.unpack_from("<Q", blob, p + 1)
+    return blob[p], blob[p + 9: p + 9 + n]
 
 
 def _fused_cfg(K):
@@ -82,25 +88,38 @@ def test_cpu_counts_the_host_branch():
 @pytest.mark.card
 @pytest.mark.parametrize("flag", [1, 2])
 def test_hybrid_stream_card_branch_equals_host(flag, card, monkeypatch):
-    """A flag-1 (default Config) or flag-2 (fused, K pinned) stream: the
-    card's branch writes the host path's bytes, one BFP blob on the card's
-    branch a call each way and none on the host's; both branches read it
-    to the same field, and the CPU reads it within tol."""
+    """A flag-1 (default Config) or flag-2 (fused, K pinned) stream: its cf
+    stream is the blob that the same symbols give as CPU tensors, one blob
+    with its wire on the card a call each way; the card and the CPU parse
+    it to the same tensors, and the CPU reads the stream within tol."""
     shape, tol = ((128, 128, 128), 1e-3) if flag == 1 else \
         ((16, 128, 256), 1e-3)
     cfg = None if flag == 1 else _fused_cfg(6)
     v = _field(shape).to(card)
+    real, seen = T.serialize_prepared_parts, []
+
+    def noted(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(T, "serialize_prepared_parts", noted)
     (blob, st), moved = _moved(lambda: M.compress(v, tol, config=cfg))
-    assert st == 0 and _flag(blob) == flag and moved == [1, 0]
+    assert st == 0 and moved == [1, 0] and len(seen) == 1
+    got_flag, cf = _cf_section(blob)
+    assert got_flag == flag
+    args, kw = seen[0]
+    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    cf_cpu, moved = _moved(lambda: join(real(*cpu_args, **kw)))
+    assert cf_cpu == cf and moved == [0, 1]
     (out, st), moved = _moved(lambda: M.decompress(blob, device=card))
     assert st == 0 and moved == [1, 0]
     assert float((out - v).abs().max()) <= tol
-    monkeypatch.setattr(T, "_on_card", lambda device: False)
-    (blob_h, _), moved = _moved(lambda: M.compress(v, tol, config=cfg))
-    assert blob_h == blob and moved == [0, 1]
-    out_h, _ = M.decompress(blob, device=card)
-    assert torch.equal(out_h, out)
-    monkeypatch.undo()
+    static = flag == 2
+    on_card = T.deserialize_prepared(cf, 0, card, static_cap=static)
+    on_cpu = T.deserialize_prepared(cf, 0, "cpu", static_cap=static)
+    assert on_card[3:] == on_cpu[3:]
+    for a, b in zip(on_card[:3], on_cpu[:3]):
+        assert torch.equal(a.cpu(), b)
     out_c, st = M.decompress(blob, device="cpu")
     assert st == 0 and float((out_c - v.cpu()).abs().max()) <= tol
     # and the other way: a stream written on the CPU, read on the card
@@ -109,15 +128,21 @@ def test_hybrid_stream_card_branch_equals_host(flag, card, monkeypatch):
     assert st == st2 == 0 and float((out - v).abs().max()) <= tol
 
 
+def _pinned_cfg(K=0):
+    """The card's superblock pinned, so the CPU packs the same blob."""
+    cfg = M.Config()
+    cfg.bfp_base_planes, cfg.bfp_sb_blocks = K, T.SB_BLOCKS
+    return cfg
+
+
 @pytest.mark.card
 @pytest.mark.parametrize("K", [0, 12])
-def test_standalone_stream_with_exceptions(K, card, monkeypatch):
+def test_standalone_stream_with_exceptions(K, card):
     rng = np.random.default_rng(K)
     n = T.SB_BLOCKS * 32 * 2 + 1000
     sym = (rng.standard_normal(n) * 3e4).astype(np.int32)
     sym[rng.integers(0, n, 300)] = 2 ** 30 + 7
-    cfg = M.Config()
-    cfg.bfp_base_planes = K
+    cfg = _pinned_cfg(K)
     x = torch.from_numpy(sym).to(card)
     kernels.reset_launches()
     blob = T.encode(x, cfg)
@@ -125,51 +150,35 @@ def test_standalone_stream_with_exceptions(K, card, monkeypatch):
     out, used = T.decode(blob, 0, card)
     assert kernels.LAUNCHES["bfp_expand"] == 1 and used == len(blob)
     assert torch.equal(out, x)
-    monkeypatch.setattr(T, "_on_card", lambda device: False)
-    assert T.encode(x, cfg) == blob
-    assert torch.equal(T.decode(blob, 0, card)[0], x)
-    monkeypatch.undo()
+    assert T.encode(torch.from_numpy(sym), cfg) == blob
     np.testing.assert_array_equal(T.decode(blob)[0].numpy(), sym)
-    assert torch.equal(T.decode(T.encode(torch.from_numpy(sym), cfg), 0,
-                                card)[0], x)
 
 
 @pytest.mark.card
-def test_pool_copies_follow_the_compressing_stream(card, monkeypatch):
-    """A blob of 8 MB or more is joined by bytesink's thread pool, whose
-    threads run on the default stream. Compressed on a side stream, with
-    K12 held back there, its copies from the card still wait for K12: the
-    bytes equal the host path's. Twice, since a process's first such call
-    can be serialized where later ones are not."""
+def test_copies_follow_the_compressing_stream(card, monkeypatch):
+    """A blob compressed on a side stream, with K12 held back there: its
+    copies from the card wait for K12, and the bytes equal those of the
+    same symbols on the CPU. Twice, since a process's first such call can
+    be serialized where later ones are not."""
     sym = (np.random.default_rng(9).standard_normal(1 << 22) * 3e4
            ).astype(np.int32)
     x = torch.from_numpy(sym).to(card)
-    launch, copy, threads = kernels.launch, bytesink.to_host_into, set()
+    cfg = _pinned_cfg()
+    host = T.encode(torch.from_numpy(sym), cfg)
+    launch = kernels.launch
 
     def held(name, *args, **kw):
         if name == "bfp_compact":
             torch.cuda._sleep(1 << 27)  # some 0.08 s of the side stream
         launch(name, *args, **kw)
 
-    def noted(*args):
-        threads.add(threading.get_ident())
-        copy(*args)
-
-    on_card = T._on_card
-    monkeypatch.setattr(T, "_on_card", lambda device: False)
-    host = T.encode(x)
-    assert len(host) >= bytesink._MIN_PARALLEL_BYTES
-    monkeypatch.setattr(T, "_on_card", on_card)
-    monkeypatch.setattr(bytesink, "_THREADS", 4)
-    monkeypatch.setattr(bytesink, "to_host_into", noted)
     monkeypatch.setattr(kernels, "launch", held)
     side = torch.cuda.Stream(card)
     side.wait_stream(torch.cuda.current_stream(card))
     for _ in range(2):
         with torch.cuda.stream(side):
-            blob, moved = _moved(lambda: T.encode(x))
+            blob, moved = _moved(lambda: T.encode(x, cfg))
         assert moved == [1, 0] and blob == host
-    assert threads and threading.get_ident() not in threads
 
 
 @pytest.mark.card

@@ -13,20 +13,24 @@ and the three after, where below cnt, and zeros past it. The emulation
 follows that schedule, checks the divider against integer division over
 the kernels' range, that every output word is written exactly once, that
 a warp's lanes store consecutive words (K13: consecutive quads), and
-holds the result bit for bit against the host path (_compact_sb,
-_expand_resid) and the plain versions, on every bfp.BAND_CASES geometry
-in both the row-padded and the static-cap layout, and on empty, full and
-single-superblock streams. Then the blob paths end to end on the CPU with
-the card's branch forced (its wrappers run their plain versions): the
-same bytes as the host path (with exceptions, as the JAX package's
-encoder too), and bodies read at every alignment."""
+holds the result bit for bit against a NumPy oracle that slices band by
+band (the JAX package's host compaction and expansion, written out here)
+and the plain versions, on every bfp.BAND_CASES geometry in both the
+row-padded and the static-cap layout, and on empty, full and
+single-superblock streams. Then the blob path end to end on the CPU (the
+wrappers run their plain versions): the JAX package's bytes, with and
+without exceptions, and bodies read at every alignment."""
 
 import struct
+
+import jax.numpy as jnp
 
 import numpy as np
 import pytest
 import torch
 
+import mgard_tpu
+from mgard_tpu.lossless import bfp as J
 from mgard_tpu_torch.lossless import bfp as T
 from mgard_tpu_torch.utils import trace
 from mgard_tpu_torch.utils.bytesink import join
@@ -130,13 +134,40 @@ def _emulate_expand(wire, tab, C, rows):
     return buf.reshape(rows, LANES)
 
 
+def _bands(cnt, rband, start, C):
+    """(word offset, slots x rows view shape, valid count) of every band
+    with valid words, in wire order."""
+    for s in range(cnt.shape[0]):
+        for p in range(cnt.shape[1]):
+            c = int(cnt[s, p])
+            if c:
+                r = int(rband[s, p])
+                yield int(start[s, p]) * LANES, (C, r * LANES), c
+
+
 def _host_compact(resid_flat, cnt, rband, start, C):
+    """Oracle of K12: each band's slots, their first cnt words each."""
     out = np.empty(C * int(cnt.sum()), np.uint32)
     o = 0
-    for s in range(cnt.shape[0]):
-        o += T._compact_sb(out[o:], resid_flat, cnt, rband, start, C, s)
+    for st, shape, c in _bands(cnt, rband, start, C):
+        band = resid_flat[st: st + shape[0] * shape[1]].reshape(shape)
+        out[o: o + C * c].reshape(C, c)[:] = band[:, :c]
+        o += C * c
     assert o == out.size
     return out
+
+
+def _host_expand(wire, cnt, rband, start, rows, C):
+    """Oracle of K13: (rows, 128) zeros with each slot's wire words put
+    back at its start."""
+    buf = np.zeros(rows * LANES, np.uint32)
+    o = 0
+    for st, shape, c in _bands(cnt, rband, start, C):
+        band = buf[st: st + shape[0] * shape[1]].reshape(shape)
+        band[:, :c] = wire[o: o + C * c].reshape(C, c)
+        o += C * c
+    assert o == wire.size
+    return buf.reshape(rows, LANES)
 
 
 # (name, E, sb, C, superblocks, residual lengths: a BAND_CASES entry's
@@ -195,9 +226,8 @@ def test_wire_schedule_matches_host(spec, static):
     np.testing.assert_array_equal(
         T.compact_wire_plain(r2, tt, C).numpy().view(np.uint32), wire)
     buf = _emulate_expand(wire, tab, C, rows)
-    host = T._expand_resid(wire, crl, E, C, sb, static)
-    np.testing.assert_array_equal(buf, host[:rows])
-    assert not host[rows:].any()  # the host's spare rows: zeros
+    np.testing.assert_array_equal(buf, _host_expand(wire, cnt, rband, start,
+                                                    rows, C))
     w2 = torch.from_numpy(wire.view(np.int32))
     np.testing.assert_array_equal(
         T.expand_wire_plain(w2, tt, C, rows).numpy().view(np.uint32), buf)
@@ -212,76 +242,60 @@ def test_wire_schedule_matches_host(spec, static):
 
 def _prepared(spec, seed):
     """encode_core_zz of a BAND_CASES entry's u16 rows: (n, K, E, sb, C,
-    crl, base, resid2d, resid_rows)."""
+    crl, rows, base, resid2d)."""
     args, _cnt, _rows = T.band_case(spec, "cpu", seed)
     rows, _rank, _w, _r, _o, K, E, sb, C, _a = args
     crl = torch.from_numpy(_crl(spec, seed)[0])
     static = spec[-1]
     out = T.encode_core_zz(rows, crl, K, E, sb, C, static_cap=static)
-    return rows.shape[0] * C * 32, K, E, sb, C, crl, *out
+    return rows.shape[0] * C * 32, K, E, sb, C, crl, rows, *out
 
 
 _U16 = [s for s in T.BAND_CASES if s[1] == 16 and s[2] + s[3] <= 16]
 
 
 @pytest.mark.parametrize("spec", _U16, ids=[s[0] for s in _U16])
-def test_card_branch_writes_host_bytes(spec, monkeypatch):
-    """The card's branch (plain K12/K13, copies into the blob) writes and
-    reads the host path's bytes, the body at each alignment."""
-    n, K, E, sb, C, crl, base, resid, rrows = _prepared(spec, 3)
+def test_card_branch_writes_host_bytes(spec):
+    """The one blob path, with the wrappers' plain versions on the CPU,
+    writes the bytes of the JAX package's host serializer for the same
+    rows, and reads the body back to K2's rows at each alignment. Each
+    blob counts its wire map on the host."""
+    n, K, E, sb, C, crl, rows, base, resid = _prepared(spec, 3)
     static = spec[-1]
-    host = join(T.serialize_prepared_parts(n, K, E, sb, C, crl, base, resid,
-                                           rrows, static_cap=static))
+    before = trace.counters()
+    blob = join(T.serialize_prepared_parts(n, K, E, sb, C, crl, base, resid,
+                                           static_cap=static))
+    jo = J.encode_core_zz(jnp.asarray(rows.numpy().view(np.uint16)),
+                          jnp.asarray(crl.numpy()), K, E, sb, False, C)
+    assert blob == J.serialize_prepared(n, K, E, sb, C, crl.numpy(), *jo)
     nnib = (crl.shape[0] + 1) // 2
     assert (struct.calcsize(T._HDR) + nnib) % 4  # the body is unaligned
-    monkeypatch.setattr(T, "_on_card", lambda device: True)
-    before = trace.counters()
-    card = join(T.serialize_prepared_parts(n, K, E, sb, C, crl, base, resid,
-                                           rrows, static_cap=static))
-    assert card == host
     for pad in range(4):
-        blob = b"\x00" * pad + card
-        got = T.deserialize_prepared(blob, pad, "cpu", static_cap=static)
-        monkeypatch.setattr(T, "_on_card", lambda device: False)
-        want = T.deserialize_prepared(blob, pad, "cpu", static_cap=static)
-        monkeypatch.setattr(T, "_on_card", lambda device: True)
-        assert got[3:] == want[3:] == ((n, K, E, sb, C), len(card))
-        for a, b in zip(got[:2], want[:2]):
-            assert torch.equal(a, b)
-        rows = got[2].shape[0]  # one row of zeros with no band rows
-        assert torch.equal(got[2], want[2][:rows])
-        assert not want[2][rows:].any()
-        back = T.decode_core_zz(got[0], got[1], got[2], K, E, sb, n // 32, C,
+        got = T.deserialize_prepared(b"\x00" * pad + blob, pad, "cpu",
+                                     static_cap=static)
+        assert got[3:] == ((n, K, E, sb, C), len(blob))
+        assert torch.equal(got[1], crl)
+        back = T.decode_core_zz(*got[:3], K, E, sb, n // 32, C,
                                 static_cap=static)
-        assert torch.equal(back, T.decode_core_zz(*want[:3], K, E, sb,
-                                                  n // 32, C,
-                                                  static_cap=static))
-    # one a blob on each branch: a write and four reads on the card's, the
-    # four reads of the host path beside them
+        assert torch.equal(back, rows)
+    # a write and four reads, each a blob with its wire on the host
     after = trace.counters()
     assert [after.get(k, 0) - before.get(k, 0) for k in (
-        "bfp.wire.device", "bfp.wire.host")] == [5, 4]
+        "bfp.wire.device", "bfp.wire.host")] == [0, 5]
 
 
 @pytest.mark.parametrize("K", [0, 12])
-def test_card_branch_standalone_stream_with_exceptions(K, monkeypatch):
+def test_card_branch_standalone_stream_with_exceptions(K):
     rng = np.random.default_rng(K)
     sym = (rng.standard_normal(256 * 32 * 3 + 77) * 3e4).astype(np.int32)
     sym[rng.integers(0, sym.size, 40)] = 2 ** 30 + 5
     cfg = type("Cfg", (), dict(bfp_base_planes=K, bfp_sb_blocks=256))()
-    host = T.encode(torch.from_numpy(sym), cfg)
-    monkeypatch.setattr(T, "_on_card", lambda device: True)
-    card = T.encode(torch.from_numpy(sym), cfg)
-    assert card == host and struct.unpack_from(T._HDR, card)[7] > 0
-    import jax.numpy as jnp  # the JAX package is the reference here
-
-    import mgard_tpu
-    from mgard_tpu.lossless import bfp as J
-
+    blob = T.encode(torch.from_numpy(sym), cfg)
+    assert struct.unpack_from(T._HDR, blob)[7] > 0
     jc = mgard_tpu.Config()
     jc.bfp_base_planes, jc.bfp_sb_blocks = K, 256
-    assert card == J.encode(jnp.asarray(sym), jc)
+    assert blob == J.encode(jnp.asarray(sym), jc)
     for pad in range(4):
-        out, used = T.decode(b"\x01" * pad + card, pad)
-        assert used == len(card)
+        out, used = T.decode(b"\x01" * pad + blob, pad)
+        assert used == len(blob)
         np.testing.assert_array_equal(out.numpy(), sym)

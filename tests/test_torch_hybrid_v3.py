@@ -163,7 +163,7 @@ def test_static_cap_bytes_match_jax(K, oracle):
         n_cf, K, E, sb, C, crl, base_j, resid_j, 0, static_cap=True))
     tblob = tjoin(TB.serialize_prepared_parts(
         n_cf, K, E, sb, C, torch.from_numpy(crl),
-        torch.from_numpy(_i32(base_j)), torch.from_numpy(_i32(resid_j)), 0,
+        torch.from_numpy(_i32(base_j)), torch.from_numpy(_i32(resid_j)),
         static_cap=True))
     assert tblob == jblob
     words = struct.unpack_from(TB._HDR, tblob)[2]
@@ -196,7 +196,7 @@ def test_static_cap_blob_is_the_dynamic_blob(field, K, port_pack):
     dyn = TB.encode_core_zz(rows, crl, K, E, sb, C)
     a = tjoin(TB.serialize_prepared_parts(n_cf, K, E, sb, C, crl, *dyn))
     b = tjoin(TB.serialize_prepared_parts(n_cf, K, E, sb, C, crl, base,
-                                          resid, 0, static_cap=True))
+                                          resid, static_cap=True))
     assert a == b
 
 

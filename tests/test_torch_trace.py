@@ -44,7 +44,6 @@ PARENTS = {
     "api.mdr_reconstruct": {None},
     "api.metadata": {"api.compress", "api.decompress"},
     "api.join": {"api.compress", "api.mdr_refactor", "codec.plane_encode"},
-    "codec.bfp_compact": {"api.join"},
     "kernel.front": {"api.compress", "api.decompress"},
     "kernel.remainder": {"kernel.front"},
     "codec.lossless": {"api.compress", "api.decompress", "kernel.front"},
@@ -53,8 +52,9 @@ PARENTS = {
     "codec.bfp_plan": {"kernel.bfp_encode", "kernel.bfp_decode"},
     "codec.choose_K": {"api.compress", "codec.lossless"},
     "codec.bfp_blob": {"api.compress"},
+    "kernel.bfp_compact": {"codec.bfp_blob"},
     "codec.bfp_parse": {"api.decompress", "codec.lossless"},
-    "codec.bfp_expand": {"api.decompress", "codec.lossless"},
+    "kernel.bfp_expand": {"api.decompress", "codec.lossless"},
     "kernel.mdr_decompose": {"api.mdr_refactor"},
     "codec.plane_encode": {"api.mdr_refactor"},
     "codec.plan": {"api.mdr_request"},
@@ -67,10 +67,10 @@ PARENTS = {
     "kernel.recompose": {"api.decompress"},
 }
 FLAG1_SPANS = {"api.compress", "api.decompress", "api.metadata", "api.join",
-               "codec.bfp_compact", "kernel.front", "kernel.remainder",
+               "kernel.bfp_compact", "kernel.front", "kernel.remainder",
                "codec.lossless", "kernel.bfp_encode", "kernel.bfp_decode",
                "codec.bfp_plan", "codec.choose_K", "codec.bfp_blob",
-               "codec.bfp_parse", "codec.bfp_expand"}
+               "codec.bfp_parse", "kernel.bfp_expand"}
 RAW_SPANS = {"api.norm", "kernel.decompose", "kernel.quantize",
              "kernel.dequantize", "kernel.recompose"}
 MDR_SPANS = {"api.mdr_refactor", "api.mdr_request", "api.mdr_reconstruct",
