@@ -53,9 +53,12 @@ Phases (each prints a line; any failure exits nonzero before the result):
      (nyx512.bfp.roundtrip measures its speed), with the launch counters
      reset just before and read just after (K1-K4, K12, K13): each BFP
      blob (cf stream and remainder) compacted and expanded on the card,
-     none on the host (the bfp.wire.* counters);
+     none on the host (the bfp.wire.* counters); the copies staged through
+     the pinned ring on the compress and on the decompress
+     (copy.staged.calls/bytes/chunks, none copy.direct.calls) and the
+     ring's pinned bytes;
   5. Hybrid+BFX (Config.lossless=BFX, flag 0): the same field and
-     tolerance, the same counters (K5-K8);
+     tolerance, the same counters (K5-K8, the staged copies);
   6. the main path at 128^3: flag 1 with a BFX remainder (K1-K6);
   7. 256^3 streams across devices: written on the card and decoded on the
      CPU (plain path) and on the card, for the flag-1 path, the flag-0
@@ -278,6 +281,23 @@ def bench_field(n, device, seed=42):
         ph = float(rng.uniform(0, 2 * np.pi))
         v += amp * torch.sin(2 * np.pi * (kx * X + ky * Y + kz * Z) + ph)
     return v
+
+
+STAGING = ("copy.staged.calls", "copy.staged.bytes", "copy.staged.chunks",
+           "copy.direct.calls")
+
+
+def staging_line(c0, c1, c2, trace):
+    """The staged copies of one compress (counters c0 -> c1) and one
+    decompress (c1 -> c2), and the ring's pinned bytes; raises unless both
+    staged their bulk copies and none found the ring busy."""
+    w, r = ([b.get(k, 0) - a.get(k, 0) for k in STAGING]
+            for a, b in ((c0, c1), (c1, c2)))
+    if not (w[0] and r[0]) or w[3] or r[3]:
+        raise AssertionError(f"staged copies {STAGING}: compress {w}, "
+                             f"decompress {r}")
+    return (f"staged copies (calls, bytes, chunks, direct): compress {w}, "
+            f"decompress {r}; pinned ring {trace.pinned_bytes()} B")
 
 
 def time_ms(fn, reps=5):
@@ -2062,11 +2082,13 @@ def main():
     blob, st = M.compress(v, TOL, s=math.inf, mode=M.error_bound_type.ABS)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    wire_mid = trace.counters()
     out, st2 = M.decompress(blob, device=dev)
     torch.cuda.synchronize()
     tc, td = t1 - t0, time.perf_counter() - t1
     launches_main = dict(kernels.LAUNCHES)
     wire1 = trace.counters()
+    staged_main = staging_line(wire0, wire_mid, wire1, trace)
     wire = [wire1.get(k, 0) - wire0.get(k, 0)
             for k in ("bfp.wire.device", "bfp.wire.host")]
     # every BFP blob of the main path (the cf stream and the remainder) is
@@ -2106,7 +2128,8 @@ def main():
           f"{tc * 1e3:.1f} ms ({nbytes / tc / 1e9:.3f} GB/s), decompress "
           f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [one call]; "
           f"peak device memory {peak / 2**30:.3f} GiB; BFP blobs with "
-          f"the wire on the card / host {wire}; launches {launches_main}")
+          f"the wire on the card / host {wire}; launches {launches_main}; "
+          f"{staged_main}")
     del out
 
     # -- 5. Hybrid+BFX ---------------------------------------------------
@@ -2118,14 +2141,17 @@ def main():
     kernels.reset_launches()
     times = []
     for _rep in range(3):
+        c0 = trace.counters()
         t0 = time.perf_counter()
         blob, st = M.compress(v, TOL, s=math.inf, mode=M.error_bound_type.ABS,
                               config=bcfg)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        c1 = trace.counters()
         out, st2 = M.decompress(blob, device=dev)
         torch.cuda.synchronize()
         times.append((t1 - t0, time.perf_counter() - t1))
+    staged_bfx = staging_line(c0, c1, trace.counters(), trace)
     launches_bfx = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     if st != M.compress_status_type.Success or \
@@ -2151,7 +2177,7 @@ def main():
           f"{tc * 1e3:.1f} ms ({nbytes / tc / 1e9:.3f} GB/s), decompress "
           f"{td * 1e3:.1f} ms ({nbytes / td / 1e9:.3f} GB/s) [one call]; "
           f"peak device memory {peak / 2**30:.3f} GiB; launches "
-          f"{launches_bfx}")
+          f"{launches_bfx}; {staged_bfx} (the last call)")
     del out, v, blob
     torch.cuda.empty_cache()
 

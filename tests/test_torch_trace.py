@@ -354,6 +354,42 @@ def test_copy_helpers_on_the_cpu_share_memory():
     assert trace.to_host(t) is not None and trace.to_host(t)[5] == 5.0
 
 
+PLAN_SIZES = {"0": 0, "1": 1, "chunk-1": trace.CHUNK - 1,
+              "chunk": trace.CHUNK, "chunk+1": trace.CHUNK + 1,
+              "3.5chunks": 7 * trace.CHUNK // 2,
+              "9chunks+5": 9 * trace.CHUNK + 5}
+
+
+@pytest.mark.parametrize("slots", [2, 3, 4])
+@pytest.mark.parametrize("n", PLAN_SIZES.values(), ids=PLAN_SIZES.keys())
+def test_chunk_plan_covers_the_bytes_once(n, slots):
+    """A staged copy's steps tile [0, n) in order, full chunks but the
+    last, and reuse a slot only every ``slots`` steps."""
+    plan = trace.chunk_plan(n, trace.CHUNK, slots)
+    assert [o for o, _, _ in plan] == list(range(0, n, trace.CHUNK))
+    assert sum(size for _, size, _ in plan) == n
+    assert all(size == trace.CHUNK for _, size, _ in plan[:-1])
+    assert all(0 < size <= trace.CHUNK for _, size, _ in plan)
+    assert [s for *_, s in plan] == [k % slots for k in range(len(plan))]
+    assert trace.chunk_plan(n) == trace.chunk_plan(n, trace.CHUNK,
+                                                   trace.SLOTS)
+
+
+def test_bulk_copies_off_the_card_are_not_staged():
+    """Only a CUDA device's copies take a ring: a bulk copy to the meta
+    device or on the CPU counts as it did, and pins nothing."""
+    a = np.arange(trace.STAGE_MIN, dtype=np.uint8)
+    d = _delta(lambda: trace.to_device(a, "meta"))
+    assert d == {"copy.htod.calls": 1, "copy.htod.bytes": a.nbytes}
+    dst = np.zeros(a.nbytes + 1, np.uint8)
+    assert not _delta(lambda: trace.to_host_into(torch.from_numpy(a),
+                                                 dst[1:]))
+    np.testing.assert_array_equal(dst[1:], a)
+    assert trace.pinned_bytes() == 0
+    assert trace.SLOTS * trace.CHUNK <= 128 * 10**6
+    assert trace.CHUNK % 4096 == 0
+
+
 def test_transform_operators_come_up_in_one_span(tmp_path):
     """A transform on a card copies every dense operator it applies before
     its first level, one copy each, in one ``copy.htod`` span (the meta
