@@ -71,7 +71,8 @@ Phases (each prints a line; any failure exits nonzero before the result):
      fetched must rise strictly with the tightness), with the launch
      counters reset just before and read just after (K9, four levels);
   9. the same field with mdr_level_compressor="bfx" (K5 on refactor, K6 on
-     reconstruct);
+     reconstruct; mdr384.bfx.progressive measures its speed), with the
+     plane bytes stored and retrieved at tol 1e-2, 1e-3 and 1e-4;
  10. MDR across devices at 128^3: a stream written on the card reconstructs
      on the CPU and one written on the CPU on the card;
  11. MDReconstructQoI (V_TOT) over three 128^3 variables on the card;
@@ -125,7 +126,15 @@ Phases (each prints a line; any failure exits nonzero before the result):
      and decoded there within the bound (ms each way, medians of 3, and
      bytes); an MDR-X archive of a 256^3 field written with write_mdrx and
      read back through MDRXArchive on the card at tol 1e-2 / 1e-3 / 1e-4,
-     each bound held, the bytes fetched printed.
+     each bound held, the bytes fetched printed;
+ 21. XGC's f0 shape, (8,39,16395,39) float64, the xgc4d_f64 field of
+     bench_torch/configs (xgc4d.l2.roundtrip measures its speed): one
+     compress at REL 1e-3, s=0 (the MultiDim transform on the slice route:
+     an axis over 4096) and one decompress on the card, the L2 bound held
+     (bench_torch/reference_l2.py's norm), the slice route's counters of
+     each call (transform.slice_levels, scan_passes, solve_elems), the
+     transform's ms a call each way (CUDA events) and the peak device
+     memory.
 The second-to-last line is a JSON summary of the kernels: launches from the
 path each kernel belongs to (K1-K4 and K14 phase 4, K5-K8 phase 5, K9
 phase 8, K10/K11 phase 12, the probe variants phase 13's counted run),
@@ -1238,6 +1247,71 @@ def reference_phase(dev, M):
     phase(f"phase 20 MDR-X archive {N_CROSS}^3 f32: write_mdrx {ms:.1f} ms, "
           f"{len(files)} files, {size} bytes; MDRXArchive on the card: "
           + "; ".join(parts))
+
+
+def xgc_phase(dev, M):
+    """Phase 21: XGC's f0 shape at s = 0 through the public API, the slice
+    route counted and timed. Runs alone too:
+    ``python3 -c "import chip_smoke as C; C.xgc_phase('cuda', None)"``."""
+    import mgard_tpu_torch
+    from mgard_tpu_torch.hierarchy import get_hierarchy
+    from mgard_tpu_torch.ops import refactor as R
+    from mgard_tpu_torch.utils import trace
+
+    M = M or mgard_tpu_torch
+    dev = torch.device(dev)
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "bench_torch")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import field
+    import reference_l2
+    import registry
+
+    cfg = registry.config([bench], "xgc4d_f64")
+    shape = tuple(cfg["shape"])
+    tol = float(cfg["error_bound"]["tol"])
+    hier = get_hierarchy(shape, np.float64)
+    if R._use_fast(hier):
+        raise AssertionError(f"{shape} must take the slice route")
+    v = field.make_field(cfg, 42, 0, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    keys = ("transform.slice_levels", "transform.scan_passes",
+            "transform.solve_elems", "transform.levels", "quantize.symbols",
+            "copy.staged.calls")
+    c0 = trace.counters()
+    (blob, st), tc = timed(lambda: M.compress(
+        v, tol, 0.0, M.error_bound_type.REL))
+    c1 = trace.counters()
+    (out, st2), td = timed(lambda: M.decompress(blob, device=dev))
+    c2 = trace.counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    dw, dr = ({k: c.get(k, 0) - b.get(k, 0) for k in keys}
+              for b, c in ((c0, c1), (c1, c2)))
+    bound = tol * reference_l2.rel_norm(v)
+    err = reference_l2.l2_norm(out - v)
+    if (st or st2 or tuple(out.shape) != shape or out.dtype != v.dtype
+            or not err <= bound
+            or dw["transform.slice_levels"] != hier.l_target
+            or dr["transform.slice_levels"] != hier.l_target
+            or dw["transform.scan_passes"] <= 0):
+        raise AssertionError(f"XGC {shape}: status {st}/{st2}, L2 error "
+                             f"{err} (bound {bound}), counters {dw} / {dr}")
+    del out
+    t_dec = time_ms(lambda: R.decompose(v, hier, True), 2)
+    dec = R.decompose(v, hier, True)
+    t_rec = time_ms(lambda: R.recompose(dec, hier, True), 2)
+    nbytes = v.numel() * v.element_size()
+    phase(f"phase 21 XGC {shape} f64 REL tol={tol:g} s=0: ratio "
+          f"{nbytes / len(blob):.4f}, L2 error / bound {err / bound:.5f}; "
+          f"compress {tc:.1f} ms ({nbytes / tc / 1e6:.3f} GB/s), decompress "
+          f"{td:.1f} ms ({nbytes / td / 1e6:.3f} GB/s) [one call each]; "
+          f"the transform alone {t_dec:.1f} / {t_rec:.1f} ms (CUDA events, "
+          f"mean of 2); peak device memory {peak / 2**30:.3f} GiB; "
+          f"counters of the compress {dw}, of the decompress {dr}")
+    del v, dec
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -2358,9 +2432,16 @@ def main():
     if not (k5 >= 1 and k6 >= 1 and n_bfx >= 1 and err <= 1e-3):
         raise AssertionError(f"MDR bfx: K5 {k5}, K6 {k6}, BFX planes "
                              f"{n_bfx}, L-inf {err}")
+    fetched = []
+    for tol in (1e-2, 1e-3, 1e-4):
+        meta_b.prev_used = []
+        fetched.append(MDR.retrieve_size(meta_b, MDR.MDRequest(meta_b, tol)))
+    meta_b.prev_used = []
     phase(f"phase 9 MDR {N_MDR}^3 bfx planes: MDRefactor {tb * 1e3:.1f} ms, "
           f"{n_bfx} BFX planes, stored {stored_b} bytes (ratio "
-          f"{raw / stored_b:.4f}); MDReconstruct tol 1e-3 {tbr * 1e3:.1f} "
+          f"{raw / stored_b:.4f}); plane bytes retrieved at tol 1e-2 / 1e-3 "
+          f"/ 1e-4: {fetched[0]} / {fetched[1]} / {fetched[2]}; "
+          f"MDReconstruct tol 1e-3 {tbr * 1e3:.1f} "
           f"ms, L-inf {err:.3e}; launches K9 "
           f"{kernels.LAUNCHES['bitplane_encode']}, K5 {k5}, K6 {k6}")
     del rec, data_b, meta_b, v384
@@ -2500,6 +2581,10 @@ def main():
     # -- 20. streams of the reference libraries -------------------------
     torch.cuda.empty_cache()
     reference_phase(dev, M)
+
+    # -- 21. XGC's f0 shape on the slice route ---------------------------
+    torch.cuda.empty_cache()
+    xgc_phase(dev, M)
 
     print(smi[0], flush=True)
     print(json.dumps({"kernels": [

@@ -37,7 +37,8 @@ from ..highlevel import as_tensor, resolve_device
 from ..lossless import bfx as _bfx
 from ..ops.refactor import decompose, recompose
 from ..utils.bytesink import join
-from ..utils.trace import count, span, to_device_each, to_host, traced
+from ..utils.trace import (count, host_scratch, span, to_device_each,
+                           to_host, to_host_into, traced)
 from . import bitplane
 from .components import (
     interleave_level,
@@ -272,6 +273,34 @@ def _refactor_levels(v, hier: Hierarchy, B: int, negabinary: bool,
             for l in range(hier.l_target + 1)]
 
 
+def _encode_planes(planes_h, dispatched, lvl_codec):
+    """One level's planes as stored: each row of the host bit patterns
+    ``planes_h`` as its zlib or BFX blob (``dispatched``: the level's BFX
+    packs, None where a plane has none) or raw, whichever is smaller.
+    Returns (sizes, codecs, blobs); a raw blob is copied out of
+    ``planes_h``."""
+    sizes, raws, blobs = [], [], []
+    with span("codec.plane_encode"):
+        for p in range(planes_h.shape[0]):
+            raw_bytes = memoryview(planes_h[p]).cast("B")
+            cand, cid = None, PLANE_RAW
+            if lvl_codec == "zlib":
+                cand, cid = zlib.compress(raw_bytes, 1), PLANE_ZLIB
+            elif dispatched[p] is not None:
+                cand = join(_bfx.serialize_device_parts(dispatched[p]))
+                cid = PLANE_BFX
+            best, codec = choose_plane_blob(raw_bytes, cand, cid)
+            if codec == PLANE_RAW:
+                best = bytes(best)
+            blobs.append(best)
+            sizes.append(len(best))
+            raws.append(codec)
+            count(_PLANE_COUNTERS[codec])
+            count("mdr.plane.bytes_in", len(raw_bytes))
+            count("mdr.plane.bytes_out", len(best))
+    return sizes, raws, blobs
+
+
 @traced("api.mdr_refactor")
 def MDRefactor(data, config: Optional[Config] = None,
                coords: Optional[Sequence[np.ndarray]] = None, device=None):
@@ -307,25 +336,13 @@ def MDRefactor(data, config: Optional[Config] = None,
         exp = int(to_host(exp))
         err_max, err_sq = bitplane.scale_tables(err_max, err_sq, exp, B,
                                                 negabinary)
-        planes_h = to_host(planes)  # (B+1 or B, m) u32 bit patterns
-        sizes, raws, blobs = [], [], []
-        with span("codec.plane_encode"):
-            for p in range(planes_h.shape[0]):
-                raw_bytes = planes_h[p].astype("<i4", copy=False).tobytes()
-                cand, cid = None, PLANE_RAW
-                if lvl_codec == "zlib":
-                    cand, cid = zlib.compress(raw_bytes, 1), PLANE_ZLIB
-                elif dispatched[l][p] is not None:
-                    cand = join(_bfx.serialize_device_parts(
-                        dispatched[l][p]))
-                    cid = PLANE_BFX
-                best, codec = choose_plane_blob(raw_bytes, cand, cid)
-                blobs.append(best)
-                sizes.append(len(best))
-                raws.append(codec)
-                count(_PLANE_COUNTERS[codec])
-                count("mdr.plane.bytes_in", len(raw_bytes))
-                count("mdr.plane.bytes_out", len(best))
+        # (B+1 or B, m) u32 bit patterns: a bulk copy staged like a stream's,
+        # into the process's warm scratch
+        with host_scratch(planes.numel() * planes.element_size()) as buf:
+            to_host_into(planes.contiguous(), buf)
+            sizes, raws, blobs = _encode_planes(
+                buf.view("<i4").reshape(tuple(planes.shape)), dispatched[l],
+                lvl_codec)
         levels.append(LevelMetadata(exp, level_num_elems(hier, l), sizes,
                                     raws, err_max, err_sq))
         planes_data.append(blobs)

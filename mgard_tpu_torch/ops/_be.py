@@ -9,13 +9,18 @@ tensors they run on the tensor's own device in the tensor's own type.
 
 ``linrec`` is the one operator whose two branches differ in kind: NumPy
 sweeps sequentially; torch has no associative scan, so the tensor branch
-is a log-depth doubling scan over the (f, d) pairs.
+is a log-depth doubling scan over the (f, d) pairs, which counts each of
+its steps in ``transform.scan_passes`` as it runs. ``asarray_like`` counts
+the bytes of a table it puts on a device other than the CPU in
+``transform.put_bytes``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils.trace import count
 
 
 def is_np(x) -> bool:
@@ -80,6 +85,8 @@ def asarray_like(table, like, shape=None):
         arr = np.asarray(table)
     else:
         arr = torch.as_tensor(np.ascontiguousarray(table), device=like.device)
+        if like.device.type != "cpu":
+            count("transform.put_bytes", arr.nbytes)
     if shape is not None:
         arr = arr.reshape(shape)
     return arr
@@ -123,6 +130,7 @@ def linrec(d, f, axis: int, reverse: bool):
         # into D and F in place reads only values of the step before
         D[k:] = D[k:] + F[k:].reshape(bshape) * D[:-k]
         F[k:] = F[k:] * F[:-k]
+        count("transform.scan_passes")
         k *= 2
     if reverse:
         D = D.flip(0)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..hierarchy import AxisLevel
+from ..utils.trace import count
 from . import _be
 
 
@@ -140,7 +141,12 @@ def tridiag_solve_axis(d, axis: int, al: AxisLevel):
     (IPKFunctor.h:13-55):
       forward:  y_i = d_i + fwd_f_i * y_{i-1}
       backward: x_i = (y_i * bwd_binv_i) + bwd_g_i * x_{i+1}
+
+    A tensor solve counts the elements of ``d`` in ``transform.solve_elems``
+    (the NumPy oracle counts nothing).
     """
+    if not _be.is_np(d):
+        count("transform.solve_elems", d.numel())
     ndim = d.ndim
     nc = al.n_coarse
     f = _be.asarray_like(al.fwd_f, d, _bshape(ndim, axis, nc))

@@ -32,11 +32,18 @@ error budget. ``decompose_single`` / ``recompose_single`` are the SingleDim
 variant (one dimension coarsened at a time per level).
 
 ``decompose`` and ``recompose`` count the level steps each route runs:
-``transform.kernel_levels`` (K14) and ``transform.dense_levels`` (the dense
-operators; the slice path counts neither). ``transform.put_bytes`` counts
-the operators or tables a transform puts on its device, where they go up:
-the dense operators every call, K14's tables on the first call per
-hierarchy and device.
+``transform.kernel_levels`` (K14), ``transform.dense_levels`` (the dense
+operators) and ``transform.slice_levels`` (the slice path, one a level
+step, each step in a ``transform.slice_level`` span). The slice path also
+counts its Thomas solves, each in a ``transform.solve`` span:
+``transform.scan_passes``, the steps of its doubling scans, counted by
+``_be.linrec`` as each runs (2 ceil(log2 n) for a solve over n coarse
+nodes), and ``transform.solve_elems``, the elements of the solve's box,
+counted by ``axis.tridiag_solve_axis``. ``transform.put_bytes`` counts the
+operators or tables a transform puts on its device, where they go up: the
+dense operators every call, K14's tables on the first call per hierarchy
+and device, and the slice path's per-axis tables (``_be.asarray_like``)
+every call on a device other than the CPU.
 
 Output layout is the reference's nested-box ("reo") layout: after the full
 decomposition the level-l data occupies the leading box level_shape[l].
@@ -50,7 +57,7 @@ import numpy as np
 import torch
 
 from ..hierarchy import Hierarchy
-from ..utils.trace import count, to_device_each
+from ..utils.trace import count, span, to_device_each, traced
 from . import _be, multidim
 from .axis import (
     mass_restrict_axis,
@@ -292,7 +299,8 @@ def _correction(resid, axes):
     for al in axes:
         corr = _rot(mass_restrict_axis(corr, 0, al))
     for al in axes:
-        corr = _rot(tridiag_solve_axis(corr, 0, al))
+        with span("transform.solve"):
+            corr = _rot(tridiag_solve_axis(corr, 0, al))
     return corr
 
 
@@ -304,6 +312,7 @@ def _extract_coarse(v, axes):
     return coarse
 
 
+@traced("transform.slice_level")
 def decompose_level(v, hier: Hierarchy, l: int, orthogonal: bool = True):
     """One coarsening step on the compact level-l box.
 
@@ -311,6 +320,7 @@ def decompose_level(v, hier: Hierarchy, l: int, orthogonal: bool = True):
     orthogonal) in the leading coarse box, multilinear-interpolation
     coefficients in the complementary slabs.
     """
+    count("transform.slice_levels")
     axes = hier.axis[l - 1]
     D = hier.D
 
@@ -337,8 +347,10 @@ def decompose_level(v, hier: Hierarchy, l: int, orthogonal: bool = True):
     return _be.update_box(reo, coarse, D)
 
 
+@traced("transform.slice_level")
 def recompose_level(reo, hier: Hierarchy, l: int, orthogonal: bool = True):
     """Inverse of decompose_level."""
+    count("transform.slice_levels")
     axes = hier.axis[l - 1]
     D = hier.D
     coarse_shape = hier.level_shape[l - 1]

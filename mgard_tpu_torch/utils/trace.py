@@ -17,7 +17,9 @@ The first part of a name is its layer:
 - ``copy``: host-device copies (``to_host`` / ``to_device`` below; the
   bulk ones through a device's ``PinnedRing``);
 - ``kernel``: host time spent issuing device work (torch ops, the ctypes
-  launches, the dense transforms).
+  launches, the dense transforms);
+- ``transform``: the slice path's level steps and Thomas solves
+  (``ops/refactor.py``), inside a ``kernel`` stage.
 
 Spans sit at stage granularity, never inside a per-superblock,
 per-element or per-plane loop.
@@ -30,9 +32,11 @@ and ``reset_counters()`` zeroes every counter. The ``launch`` group is
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
+import numpy as np
 import torch
 from torch.autograd import profiler as _profiler
 
@@ -229,6 +233,33 @@ def _staged(copy, device, src, dst) -> bool:
     count("copy.staged.bytes", src.numel())
     count("copy.staged.chunks", chunks)
     return True
+
+
+SCRATCH_CAP = 256 << 20  # bytes: a 384^3 float32 level's bit planes fit
+_SCRATCH_LOCK = threading.Lock()
+_SCRATCH = [None]
+
+
+@contextlib.contextmanager
+def host_scratch(nbytes: int):
+    """A host uint8 array of ``nbytes`` for a bulk copy whose bytes the
+    caller uses, or copies out, inside the ``with`` block. The process
+    keeps one such buffer, grown to the largest size asked for up to
+    ``SCRATCH_CAP``, so its pages stay warm from one call to the next: a
+    fresh buffer of this size, mapped anew by the allocator, is faulted in
+    by the copy at the first touch's pace (PERF.md §5). A request above
+    the cap, or one made while another thread holds the buffer, gets a
+    fresh array that is dropped after the block."""
+    if nbytes > SCRATCH_CAP or not _SCRATCH_LOCK.acquire(blocking=False):
+        yield np.empty(nbytes, np.uint8)
+        return
+    try:
+        if _SCRATCH[0] is None or _SCRATCH[0].size < nbytes:
+            _SCRATCH[0] = None
+            _SCRATCH[0] = np.empty(nbytes, np.uint8)
+        yield _SCRATCH[0][:nbytes]
+    finally:
+        _SCRATCH_LOCK.release()
 
 
 def to_host(t):

@@ -11,7 +11,7 @@ and CUDA activities), each call inside the harness's ``bench.write`` /
 
 - ``layer_share``: the share of the calls' wall time in which the
   innermost open ``mgard.*`` span on the caller's thread belongs to each
-  layer (``api``, ``codec``, ``copy``, ``kernel``) or to none
+  layer (``api``, ``codec``, ``copy``, ``kernel``, ``transform``) or to none
   (``outside``), in %: each layer's self time;
 - ``span_share``: the same split by the innermost span itself, in %;
 - ``idle_by_span``: device-idle seconds inside the calls by the innermost
@@ -45,7 +45,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, "bench_torch")
-LAYERS = ("api", "codec", "copy", "kernel")
+LAYERS = ("api", "codec", "copy", "kernel", "transform")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 

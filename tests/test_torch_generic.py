@@ -174,6 +174,8 @@ GRID = [
     ((5, 6, 7, 8, 9), np.float32, INF, ABS),
     ((5, 6, 7, 8, 9), np.float64, -1.0, ABS),
     ((5, 6, 7, 8, 9), np.float64, 0.0, REL),
+    # rank 4 with an axis over 4096: the slice route, as XGC's f0 takes it
+    ((4, 5, 4200, 5), np.float64, 0.0, REL),
 ]
 
 

@@ -116,7 +116,10 @@ def test_l2_norm_is_the_function_norm():
 
 
 FIELDS = [("smooth", (17, 17, 17)), ("smooth", (33, 20, 9)),
-          ("smooth", (65, 65, 65)), ("walk", (33, 33, 33))]
+          ("smooth", (65, 65, 65)), ("walk", (33, 33, 33)),
+          # rank 4: the dense operators, then the slice route (an axis
+          # over refactor._FAST_MAX_AXIS), as XGC's f0 takes it
+          ("smooth", (8, 9, 33, 9)), ("smooth", (4, 5, 4200, 5))]
 
 
 @pytest.mark.parametrize("mode", ["REL", "ABS"])

@@ -121,7 +121,11 @@ def test_linrec_scan_matches_sequential(dtype, reverse, n):
                                          ((4097,), np.float32),
                                          ((8193, 3), np.float32),
                                          ((8193, 3), np.float64),
-                                         ((4100, 6), np.float64)])
+                                         ((4100, 6), np.float64),
+                                         # rank 4 with an axis over 4096,
+                                         # as XGC's f0 takes the route
+                                         ((4, 5, 4200, 5), np.float64),
+                                         ((4, 5, 4200, 5), np.float32)])
 @pytest.mark.parametrize("orthogonal", [False, True])
 @pytest.mark.parametrize("uniform", [True, False])
 def test_slice_path_matches_jax(shape, dtype, orthogonal, uniform):

@@ -65,6 +65,10 @@ PARENTS = {
     "kernel.quantize": {"api.compress"},
     "kernel.dequantize": {"api.decompress"},
     "kernel.recompose": {"api.decompress"},
+    "transform.slice_level": {"kernel.decompose", "kernel.recompose",
+                              "kernel.remainder", "kernel.mdr_decompose",
+                              "kernel.mdr_recompose"},
+    "transform.solve": {"transform.slice_level"},
 }
 FLAG1_SPANS = {"api.compress", "api.decompress", "api.metadata", "api.join",
                "kernel.bfp_compact", "kernel.front", "kernel.remainder",
@@ -214,6 +218,111 @@ def test_raw_path_spans_and_counters(tmp_path):
         assert d["transform.ops_bytes"] == TR.operator_bytes(
             hier, True, inverse) > 0
         assert d["quantize.symbols"] == v.numel() and d["raw.f64"] == 1
+
+
+def _field4(shape):
+    grids = np.meshgrid(*[np.linspace(0, 1, n) for n in shape],
+                        indexing="ij")
+    return (np.sin(2 * np.pi * (grids[0] + 3 * grids[2]))
+            + 0.5 * np.cos(2 * np.pi * (grids[1] + 2 * grids[3])))
+
+
+def test_slice_route_spans_and_counters(tmp_path):
+    """A rank-4 float64 REL stream at s = 0 with an axis over
+    ``refactor._FAST_MAX_AXIS`` (the slice route, as XGC's f0 takes it):
+    per call one ``transform.slice_levels`` a level step; per level step
+    one Thomas solve an axis over the coarse box, each counting the 2
+    ceil(log2 n) passes of its two doubling scans over its n coarse nodes
+    (``transform.scan_passes``) and the box's elements
+    (``transform.solve_elems``); the ``transform.slice_level`` and
+    ``transform.solve`` spans nested in the raw path's transform spans; no
+    dense level. A field within the dense operators' axes counts none of
+    the slice route's counters."""
+    shape = (5, 5, 4200, 5)
+    v = torch.from_numpy(_field4(shape))
+    hier = M.get_hierarchy(shape, np.float64)
+    assert not TR._use_fast(hier) and hier.l_target == 2
+    coarse = [hier.level_shape[l - 1] for l in range(1, hier.l_target + 1)]
+    passes = sum(2 * (n - 1).bit_length() for c in coarse for n in c)
+    elems = sum(len(c) * int(np.prod(c)) for c in coarse)
+    box = {}
+
+    def write():
+        box["dw"] = _delta(lambda: box.update(blob=M.compress(
+            v, 1e-3, 0.0, M.error_bound_type.REL, device="cpu")[0]))
+
+    def read():
+        box["dr"] = _delta(lambda: M.decompress(box["blob"], device="cpu"))
+
+    events = _traced_events(tmp_path, [("write", write), ("read", read)])
+    seen = _check_nesting(events, ("write", "read"))
+    assert RAW_SPANS | {"transform.slice_level", "transform.solve"} <= seen
+    names = [n for *_, n in TL.annotations(events, "mgard.transform.")]
+    assert names.count("mgard.transform.slice_level") == 2 * hier.l_target
+    assert names.count("mgard.transform.solve") == 2 * hier.l_target * 4
+    for kind in ("dw", "dr"):
+        d = box[kind]
+        assert d["transform.slice_levels"] == hier.l_target
+        assert d["transform.scan_passes"] == passes
+        assert d["transform.solve_elems"] == elems
+        assert d["transform.levels"] == hier.l_target
+        assert "transform.dense_levels" not in d
+    dense = torch.from_numpy(_field4((5, 5, 33, 5)))
+    d = _delta(lambda: M.decompress(M.compress(
+        dense, 1e-3, 0.0, M.error_bound_type.REL, device="cpu")[0],
+        device="cpu"))
+    assert d["transform.dense_levels"] > 0
+    assert not any(k in d for k in ("transform.slice_levels",
+                                    "transform.scan_passes",
+                                    "transform.solve_elems"))
+
+
+def test_slice_tables_count_where_they_go_up():
+    """The slice route's per-axis tables (lerp weights, mass stencil,
+    restriction weights, Thomas factors) count in ``transform.put_bytes``
+    each call where they go to a device other than the CPU (the meta
+    device here), every byte of every table once, and not on the CPU."""
+    shape = (5, 5, 4200, 5)
+    hier = M.get_hierarchy(shape, np.float64)
+    want = sum(al.lerp_t.nbytes + 3 * (len(al.h_ext) + 1) * al.h_ext.itemsize
+               + al.rw_left.nbytes + al.rw_right.nbytes + al.fwd_f.nbytes
+               + al.bwd_binv.nbytes + al.bwd_g.nbytes
+               for axes in hier.axis[:hier.l_target] for al in axes)
+    for dev, put in (("meta", want), ("cpu", 0)):
+        v = torch.zeros(shape, dtype=torch.float64, device=dev)
+        box = {}
+        d = _delta(lambda: box.update(dec=TR.decompose(v, hier, True)))
+        assert d.get("transform.put_bytes", 0) == put
+        d = _delta(lambda: TR.recompose(box["dec"], hier, True))
+        assert d.get("transform.put_bytes", 0) == put
+
+
+def test_host_scratch_is_reused_per_thread():
+    """The warm landing buffer of a bulk copy: one a process, the same
+    memory for every size up to the largest asked for, a larger one after
+    that; a fresh array, not kept, for a thread that finds it held and for
+    a size above ``SCRATCH_CAP``."""
+    import threading
+
+    with trace.host_scratch(1000) as a:
+        addr = a.__array_interface__["data"][0]
+    with trace.host_scratch(600) as b:
+        assert a.size == 1000 and b.size == 600
+        assert b.__array_interface__["data"][0] == addr
+        other = []
+        t = threading.Thread(target=lambda: other.append(
+            trace.host_scratch(10).__enter__()))
+        t.start()
+        t.join()
+        assert other[0].size == 10 and other[0].base is not b.base
+    with trace.host_scratch(5000) as c:
+        assert c.size == 5000
+    with trace.host_scratch(1000) as d:
+        assert d.base is c.base
+    with trace.host_scratch(trace.SCRATCH_CAP + 1) as e:
+        assert e.base is None
+    with trace.host_scratch(1000) as f:
+        assert f.base is c.base
 
 
 def test_hybrid_inf_opens_no_raw_span(tmp_path):
